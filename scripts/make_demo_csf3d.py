@@ -1,12 +1,13 @@
 """Produce docs/drop_csf_3d.gif: a 3-D falling liquid drop WITH surface
-tension (ic=3 sphere + csf=True — both round-4 upgrades; the reference
-implements neither), on the slab-Pallas pipeline with in-kernel
-normals/curvature. Rendered as the z = L/2 mid-plane VOF slice.
+tension (ic=3 sphere + csf=True — both upgrades over the reference, which
+implements neither). Rendered as the z = L/2 mid-plane VOF slice.
 
-Run on the TPU. The phase schedule stays continuous via istep0.
+Run on the GPU (needs matplotlib and PIL). The phase schedule stays
+continuous via istep0.
 """
 import os
 import sys
+import tempfile
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
@@ -28,12 +29,11 @@ OUT = os.path.join(os.path.dirname(__file__), "..", "docs")
 
 g = Grid3D(N, N, N)
 state = tv.init_state_3d(g, ic=3)
-os.makedirs("/tmp/democsf3d", exist_ok=True)
+frames_dir = tempfile.mkdtemp(prefix="democsf3d")
 paths = []
 done = 0
 while done < STEPS:
-    state = simulate_3d(g, state, EVERY, backend="pallas", istep0=done,
-                        csf=True)
+    state = simulate_3d(g, state, EVERY, istep0=done, csf=True)
     done += EVERY
     sl = np.asarray(state.F)[1:-1, 1:-1, N // 2].T
     fig, ax = plt.subplots(figsize=(3.2, 3.2), dpi=100)
@@ -42,7 +42,7 @@ while done < STEPS:
     ax.set_title(f"{N}$^3$ falling drop + CSF, z=L/2, step {done}",
                  fontsize=8)
     fig.tight_layout(pad=0.1)
-    p = f"/tmp/democsf3d/f{done:06d}.png"
+    p = os.path.join(frames_dir, f"f{done:06d}.png")
     fig.savefig(p)
     plt.close(fig)
     paths.append(p)

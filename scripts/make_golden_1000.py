@@ -3,8 +3,8 @@
 Runs the loop-based executable spec (tests/reference_numpy.py — the stand-in
 oracle for the Taichi reference, which is not installable here) once at 64^2
 f64 for 1000 steps and commits the end state as tests/golden_dambreak_64_1000.npz.
-The north-star accuracy criterion (BASELINE.json: F L-inf <= 1e-5 vs reference
-over 1000 dam-break steps) is then pinned by tests/test_golden.py against this
+The accuracy criterion (F L-inf <= 1e-5 vs the reference over 1000
+dam-break steps) is then pinned by tests/test_golden.py against this
 file at every round instead of only 30 steps.
 
 Takes ~10 minutes (pure-Python loops); run once, commit the npz.

@@ -3,7 +3,7 @@
 Runs the loop-based 3-D spec (tests/reference_numpy.py::RefSolver3D) once
 at 32^3 f64 for 300 steps and commits the end state (plus a step-100
 checkpoint) as tests/golden_dambreak3d_32_300.npz. tests/test_golden.py
-pins the framework's 3-D f64 trajectory (XLA and slab-Pallas paths)
+pins the framework's 3-D f64 trajectory
 against it every round — the 3-D analogue of the 2-D 1000-step north-star
 pin, sized so the pure-Python loop spec finishes in minutes.
 

@@ -1,25 +1,21 @@
-"""Measure the CPU stand-in baseline for bench.py.
+"""Time the 512^2 dam break (1000 steps, f32) on the host CPU with XLA:CPU.
 
-The Taichi reference cannot run here (taichi is not installable in this
-image), so the baseline recorded in BASELINE.md is this framework's own
-XLA:CPU wall-clock on the identical workload (512^2 dam break, 1000 steps,
-f32) — a multithreaded, production-compiler CPU execution comparable to
-what Taichi's CPU backend achieves on this host. Writes
-BASELINE_MEASURED.json consumed by bench.py's vs_baseline field.
+A reference point for the CPU backend only — never a device metric and
+never a baseline for a GPU number:
+
+    python scripts/measure_baseline.py
 """
 import json
 import os
 import sys
+import time
 
 os.environ["JAX_PLATFORMS"] = "cpu"
 
-import jax
-
-jax.config.update("jax_platforms", "cpu")
+import jax  # noqa: E402
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-import bench  # noqa: E402
 import tpuvof as tv  # noqa: E402
 
 
@@ -27,16 +23,15 @@ def main():
     n, n_steps = 512, 1000
     cfg = tv.dam_break_2d(n)
     state = tv.init_state(cfg, ic=1)
-    _, state = bench.measure(tv.simulate, cfg, state, n_steps)  # compile
+    jax.block_until_ready(tv.simulate(cfg, state, n_steps))  # compile
     times = []
     for _ in range(2):
-        dt, state = bench.measure(tv.simulate, cfg, state, n_steps)
-        times.append(dt)
-    cups = n * n * n_steps / min(times)
-    out = {"cell_updates_per_sec_512_cpu": round(cups, 1), "seconds_per_1000_steps_512_cpu": round(min(times), 3)}
-    with open(os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "BASELINE_MEASURED.json"), "w") as f:
-        json.dump(out, f)
-    print(json.dumps(out))
+        t0 = time.perf_counter()
+        jax.block_until_ready(tv.simulate(cfg, state, n_steps))
+        times.append(time.perf_counter() - t0)
+    print(json.dumps({"platform": "cpu",
+                      "cell_updates_per_sec_512": n * n * n_steps / min(times),
+                      "seconds_per_1000_steps_512": min(times)}))
 
 
 if __name__ == "__main__":

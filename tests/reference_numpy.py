@@ -2,7 +2,7 @@
 
 This is a deliberately *loop-based, per-cell* transcription of the physics of
 houkensjtu/taichi-2d-vof (the kernels at 2dvof.py:102-492), written as the
-golden oracle for the vectorized TPU implementation: obviously-correct
+golden oracle for the vectorized JAX implementation: obviously-correct
 sequential loops over the exact `ti.ndrange` bounds, one buffer per reference
 field, same ghost-cell conventions. Taichi itself is not installable in this
 environment, so this spec stands in for the reference when checking numerical

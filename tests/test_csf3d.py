@@ -12,10 +12,8 @@ commented out (3dvof.py:304-332) and kappa is never written (3dvof.py:607)
      NaN-safe normalization stays differentiable (same contract as 2-D);
   4. default-off reference parity: csf=False (the default) and sigma=0
      with csf=True both reproduce the inert-kappa step bit-for-bit;
-  5. the enabled step stays finite/bounded, and backend='pallas' falls
-     back to XLA with a warning (the slab kernels bake in zero kappa).
+  5. the enabled step stays finite/bounded.
 """
-import warnings
 
 import jax
 import jax.numpy as jnp
@@ -138,62 +136,6 @@ def test_csf_step_bounded_and_distinct():
     assert float(jnp.max(jnp.abs(on.u - off.u))) > 0.0
 
 
-def test_pallas_csf_simulate_matches_xla():
-    """csf=True runs the slab engine (in-kernel normals+curvature+sigma,
-    VERDICT r3 #1) — no fallback warning — and matches the XLA csf path
-    at f64 (interpret-mode kernels on CPU)."""
-    n = 16
-    g = Grid3D(n, n, n)
-    state = init_state_3d(g, ic=1)
-    state = tv.State3D(*(jnp.asarray(np.asarray(a), jnp.float64)
-                         for a in state))
-    want = simulate_3d(g, state, 6, csf=True)
-    with warnings.catch_warnings():
-        warnings.simplefilter("error")  # any fallback warning = failure
-        got = simulate_3d(g, state, 6, backend="pallas", csf=True)
-    for name, atol in (("F", 1e-11), ("u", 1e-11), ("v", 1e-11),
-                       ("w", 1e-11), ("p", 1e-7)):
-        np.testing.assert_allclose(
-            np.asarray(getattr(got, name))[1:-1, 1:-1, 1:-1],
-            np.asarray(getattr(want, name))[1:-1, 1:-1, 1:-1],
-            atol=atol, err_msg=name)
-
-
-@pytest.mark.parametrize("seed,n", [(0, 16), (1, 22)])
-def test_pallas_csf_step_fuzz(seed, n):
-    """Randomized-state fuzz of the csf slab predictor (the widened B+6
-    halo, the in-block normals masks, all three phases) against the XLA
-    csf step, f64 interpret. The entry state is BC'd once first: with
-    csf the predictor READS F's ghost mirrors (through the normals), so
-    backend agreement is defined on BC-consistent entry states (the
-    documented contract, tpuvof/solver.py `step` docstring)."""
-    from tpuvof.config import Fluid
-    from tpuvof.ops import apply_bc_3d, mix_properties
-    from tpuvof.solver3d import _step_3d_pallas, step_3d
-
-    rng = np.random.default_rng(200 + seed)
-    g = Grid3D(n, n, n)
-    shape = g.shape
-    F = jnp.asarray(np.clip(rng.normal(0.5, 0.4, shape), 0, 1))
-    u = jnp.asarray(rng.normal(0, 1e-3, shape)).at[0, :, :].set(0.0)
-    v = jnp.asarray(rng.normal(0, 1e-3, shape)).at[:, 0, :].set(0.0)
-    w = jnp.asarray(rng.normal(0, 1e-3, shape)).at[:, :, 0].set(0.0)
-    p = jnp.asarray(rng.normal(0, 10.0, shape))
-    rho, _ = mix_properties(Fluid(), F)
-    u, v, w, F, p, _ = apply_bc_3d(u, v, w, F, p, rho)
-    state = tv.State3D(F=F, u=u, v=v, w=w, p=p)
-    fl = Fluid()
-    for phase in (0, 1, 2):
-        a = step_3d(g, fl, 4e-6, 10, state, phase, csf=True)
-        b = _step_3d_pallas(g, fl, 4e-6, 10, state, phase, csf=True)
-        for name in ("F", "u", "v", "w", "p"):
-            np.testing.assert_allclose(
-                np.asarray(getattr(b, name)), np.asarray(getattr(a, name)),
-                atol=1e-11 if name != "p" else 1e-7,
-                err_msg=f"{name} ph{phase} seed{seed} n{n}")
-        state = a  # chain: next phase fuzzes from an evolved state
-
-
 @pytest.mark.parametrize("istep2,istep3", [(1, 0), (0, 1)])
 def test_extruded_trajectory_oracle_csf(istep2, istep3):
     """STEPPED-PHYSICS oracle (the op-level extrusion parity above pins
@@ -257,27 +199,3 @@ def test_cli_rejects_csf_outside_3d(capsys):
     assert main(["--csf", "--nx", "16", "--steps", "1",
                  "--no-frames"]) == 2
     assert "--three-d" in capsys.readouterr().err
-
-
-def test_csf_with_rbsor_hybrid_matches_xla():
-    """BOTH round-4 upgrades composed: csf=True (in-kernel normals in
-    the slab predictor) + pressure_solver='rbsor' (the XLA solve hosted
-    between the phase kernels) must match the all-XLA path at f64 — the
-    two features share the step and must not interfere."""
-    import warnings
-
-    g = Grid3D(16, 16, 16)
-    s = init_state_3d(g, ic=1)
-    s = tv.State3D(*(jnp.asarray(np.asarray(a), jnp.float64) for a in s))
-    kw = dict(pressure_solver="rbsor", sor_tol=1e-6, sor_max_iter=2000,
-              csf=True)
-    want = simulate_3d(g, s, 3, backend="xla", **kw)
-    with warnings.catch_warnings():
-        warnings.simplefilter("error")  # any fallback warning = failure
-        got = simulate_3d(g, s, 3, backend="pallas", **kw)
-    for name, atol in (("F", 1e-11), ("u", 1e-11), ("v", 1e-11),
-                       ("w", 1e-11), ("p", 1e-7)):
-        np.testing.assert_allclose(
-            np.asarray(getattr(got, name))[1:-1, 1:-1, 1:-1],
-            np.asarray(getattr(want, name))[1:-1, 1:-1, 1:-1],
-            atol=atol, err_msg=name)

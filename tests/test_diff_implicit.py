@@ -67,7 +67,7 @@ def test_implicit_solve_grad_matches_fd(solver):
 
         def loss(rhs):
             p = _rbsor_implicit(g, nm, jnp.zeros((18, 18), jnp.float64),
-                                rhs)
+                                rhs)[0]
             return jnp.sum(w * p)
 
     grad = jax.grad(loss)(rhs0)

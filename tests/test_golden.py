@@ -1,6 +1,6 @@
 """The north-star accuracy criterion at its stated horizon (VERDICT r1 #2).
 
-BASELINE.json north star: F L-inf <= 1e-5 vs the reference over 1000
+The accuracy criterion: F L-inf <= 1e-5 vs the reference over 1000
 dam-break steps. tests/golden_dambreak_64_1000.npz holds the end state of
 the loop-based executable spec (tests/reference_numpy.py, the oracle for
 the uninstallable Taichi reference) run once at 64^2 f64 for 1000 steps
@@ -47,7 +47,7 @@ def test_golden_bias_detector_300_steps_f64(golden):
 
 
 def test_golden_1000_steps_f64_north_star(golden):
-    """f64 meets the BASELINE.json north-star number (F L-inf <= 1e-5 over
+    """f64 meets the accuracy criterion (F L-inf <= 1e-5 over
     1000 dam-break steps) at the stated horizon. Measured drift: 2.97e-6 —
     entirely conditioning-amplified rounding (the x1.02/step amplification
     above turns ~1e-16 per-op noise into ~3e-6 by step 1000; the Taichi
@@ -106,7 +106,3 @@ def test_golden_3d_300_steps_f64(golden3d):
                       istep0=int(golden3d["checkpoint"]))
     assert np.max(np.abs(np.asarray(end.F) - golden3d["F"])) <= 1e-9
     assert np.max(np.abs(np.asarray(end.u) - golden3d["u"])) <= 1e-9
-    # the slab-Pallas path inherits this pin transitively: it matches the
-    # XLA path at 1e-10 f64 over multi-step runs (tests/test_3d.py) and
-    # bit-exactly when compiled on the TPU (tests_tpu) — a 300-step
-    # interpret-mode run here would cost ~25 min for no extra signal

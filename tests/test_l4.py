@@ -213,7 +213,7 @@ def test_cli_plan_mesh(capsys):
     rc = cli.main(["--plan-mesh", "8", "--nx", "200", "--three-d"])
     assert rc == 0
     out = capsys.readouterr().out
-    assert "pallas-pencil" in out and "mesh" in out
+    assert "pencils" in out and "halo MB/step" in out
 
 
 def test_cli_optimize(tmp_path):
@@ -385,7 +385,7 @@ def test_cli_optimize_view_every(tmp_path):
 
 
 def test_simulate_cfl_tracks_and_matches():
-    """The reference's in-kernel Courant warning, TPU-native (the scan
+    """The reference's in-kernel Courant warning, redesigned for a traced scan (the scan
     carries the running argmax; 2dvof.py:274-280): same trajectory as
     simulate() to f32 fusion-reassociation noise, a correct (step, cell)
     record, and chunked calls that cover the same steps reproduce the

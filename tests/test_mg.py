@@ -173,100 +173,8 @@ def test_distributed_accepts_mg():
     assert d3.pressure_solver == "mg"
 
 
-@pytest.mark.parametrize("solver", ["rbsor", "mg"])
-def test_hybrid_pallas_step_matches_xla_2d(solver):
-    """The hybrid 3-phase step (Pallas predict/FCT + XLA residual-driven
-    solve, VERDICT r3 #3) matches the all-XLA path at f64 (interpret-mode
-    kernels on CPU; the solve is literally the same XLA function)."""
-    import warnings
-
-    num = dict(pressure_solver=solver, sor_tol=1e-6, sor_max_iter=5000)
-    cfg_x = tv.SimConfig(grid=tv.Grid2D(64, 64),
-                         num=tv.Numerics(backend="xla", **num))
-    cfg_p = cfg_x.replace(num=tv.Numerics(backend="pallas", **num))
-    from tpuvof.solver import effective_backend
-
-    assert effective_backend(cfg_p) == "pallas"
-    state = tv.init_state(cfg_x, ic=1)
-    state = tv.State(*(jnp.asarray(np.asarray(a), jnp.float64)
-                       for a in state))
-    want = tv.simulate(cfg_x, state, 4)
-    with warnings.catch_warnings():
-        warnings.simplefilter("error")  # any fallback warning = failure
-        got = tv.simulate(cfg_p, state, 4)
-    for name, atol in (("F", 1e-12), ("u", 1e-12), ("v", 1e-12),
-                       ("p", 1e-8)):
-        np.testing.assert_allclose(
-            np.asarray(getattr(got, name))[1:-1, 1:-1],
-            np.asarray(getattr(want, name))[1:-1, 1:-1], atol=atol,
-            err_msg=name)
-
-
-def test_pallas_backend_routes_mg_to_hybrid():
-    """An upgraded pressure solver keeps the Pallas phase kernels: only
-    the projection phase runs as XLA (VERDICT r3 #3). Above the phase
-    kernels' whole-field VMEM envelope each phase streams tile-by-tile
-    through its windowed kernel instead of dropping the step to XLA
-    (VERDICT r4 #3)."""
-    from tpuvof.solver import effective_backend
-
-    cfg = tv.SimConfig(grid=tv.Grid2D(64, 64),
-                       num=tv.Numerics(backend="pallas_mono",
-                                       pressure_solver="mg"))
-    assert effective_backend(cfg) == "pallas"
-    big = tv.SimConfig(grid=tv.Grid2D(2048, 2048),
-                       num=tv.Numerics(backend="pallas_mono",
-                                       pressure_solver="rbsor"))
-    assert effective_backend(big) == "pallas_hybrid_tiled"
-
-
-@pytest.mark.parametrize("solver", ["rbsor", "mg"])
-@pytest.mark.parametrize("tile", [16, (16, 32), 8])
-def test_hybrid_tiled_step_matches_xla_2d(solver, tile):
-    """The beyond-VMEM hybrid (VERDICT r4 #3): every Pallas phase
-    streamed over PHASE_HALO-extended tiles must reproduce the XLA
-    trajectory at f64 — forced tile sizes on a small grid stand in for
-    the real beyond-envelope layouts (T < W and T > W both covered by
-    tile=8 vs 16 at PHASE_HALO=3... the cone is sliced, not exchanged,
-    so no T >= W restriction exists)."""
-    from tpuvof.solver import _step_pallas, _step_pallas_hybrid_tiled
-
-    num = dict(pressure_solver=solver, sor_tol=1e-6, sor_max_iter=5000)
-    cfg = tv.SimConfig(grid=tv.Grid2D(32, 64, Lx=0.1, Ly=0.2),
-                       num=tv.Numerics(backend="xla", **num))
-    state = tv.init_state(cfg, ic=1)
-    state = tv.State(*(jnp.asarray(np.asarray(a), jnp.float64)
-                       for a in state))
-    want = state
-    whole = state
-    got = state
-    for k in range(1, 4):
-        even = k % 2 == 0
-        want = tv.step(cfg, want, even_step=even)
-        whole = _step_pallas(cfg, whole, even_step=even, interpret=True)
-        got = _step_pallas_hybrid_tiled(cfg, got, even_step=even,
-                                        tile=tile)
-    # the tiled phases are the whole-field phase kernels sliced along
-    # the validity cone: BIT-identical to the in-envelope hybrid
-    for name in ("F", "u", "v", "p"):
-        np.testing.assert_array_equal(
-            np.asarray(getattr(got, name)),
-            np.asarray(getattr(whole, name)), err_msg=name)
-    # vs the XLA path: F/u/v at oracle tightness; p looser — near-zero
-    # cells sit inside the solve's residual tolerance, and the hybrid's
-    # bit-different rhs can shift the while_loop's trip count (same
-    # wiggle the in-envelope hybrid shows at this grid)
-    for name, atol in (("F", 1e-12), ("u", 1e-12), ("v", 1e-12),
-                       ("p", 1e-5)):
-        np.testing.assert_allclose(
-            np.asarray(getattr(got, name))[1:-1, 1:-1],
-            np.asarray(getattr(want, name))[1:-1, 1:-1], atol=atol,
-            err_msg=name)
-
-
 def test_auto_resolves_to_mg_serial_and_rbsor_distributed():
-    """pressure_solver='auto' = the measured-best upgrade per run mode
-    (BASELINE.md "Upgraded pressure solvers on the chip"): mg in serial
+    """pressure_solver='auto' = the best upgrade per run mode: mg in serial
     runs (bitwise-identical trajectory to an explicit 'mg' config) AND
     in distributed ones since parallel/mg.py landed (its coarse levels
     ride one all_gather, so the old latency-bound objection no longer

@@ -12,7 +12,7 @@ Runs on the virtual 8-device CPU mesh (conftest). Two layers of parity:
      are global psum/pmax).
 
 The reference has no counterpart at any scale (its solvers are fixed-sweep
-Jacobi, /root/reference/2dvof.py:521, 3dvof.py:334-349).
+Jacobi, reference 2dvof.py:521, 3dvof.py:334-349).
 """
 import functools
 
@@ -22,7 +22,6 @@ import jax
 import jax.numpy as jnp
 from jax import lax
 from jax.sharding import Mesh, PartitionSpec as P
-from jax.experimental.shard_map import shard_map
 
 import tpuvof as tv
 from tpuvof.grid import Grid3D
@@ -76,7 +75,7 @@ def _solve_dist(mesh_shape, gshape, gather_volume, tol=1e-9, tol_rel=0.0):
                             tol_rel=tol_rel, gather_volume=gather_volume)
         return out[(slice(1, -1),) * nd]
 
-    f = shard_map(local, mesh=mesh, in_specs=pspec, out_specs=pspec)
+    f = jax.shard_map(local, mesh=mesh, in_specs=pspec, out_specs=pspec)
     out_d = f(rhs)
     interior = (slice(1, -1),) * nd
     return np.asarray(out_s[interior]), np.asarray(out_d)

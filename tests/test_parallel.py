@@ -57,168 +57,6 @@ def test_indivisible_grid_rejected():
         Decomp(cfg, make_mesh(2, 4))
 
 
-def test_distributed_pallas_windowed_matches_serial():
-    """Per-shard windowed whole-step kernel (VERDICT r1 #3): the distributed
-    pallas engine must track the serial solver like the XLA engine does
-    (interpret mode on the CPU mesh; FP-noise tolerance — the windowed
-    kernel is the mono kernel's math on an extended block)."""
-    import tpuvof as tv
-    from jax.sharding import Mesh
-
-    # local blocks must be at least W = n_jacobi + 12 = 22 wide for the
-    # one-exchange wide halo, so 64^2 over 2x2 (32^2 blocks)
-    n = 64
-    cfg = tv.SimConfig(grid=tv.Grid2D(n, n),
-                       num=tv.Numerics(backend="pallas_mono"))
-    state = tv.init_state(cfg, ic=1)
-    state = tv.State(*(jnp.asarray(np.asarray(a), jnp.float64) for a in state))
-    want = tv.simulate(cfg.replace(num=tv.Numerics()), state, 4)
-
-    mesh = Mesh(np.array(jax.devices()[:4]).reshape(2, 2), ("mx", "my"))
-    dec = Decomp(cfg, mesh)
-    got = dec.simulate(state, 4)
-    np.testing.assert_allclose(np.asarray(got.F)[1:-1, 1:-1],
-                               np.asarray(want.F)[1:-1, 1:-1], atol=1e-13)
-    np.testing.assert_allclose(np.asarray(got.u)[1:-1, 1:-1],
-                               np.asarray(want.u)[1:-1, 1:-1], atol=1e-13)
-    np.testing.assert_allclose(np.asarray(got.p)[1:-1, 1:-1],
-                               np.asarray(want.p)[1:-1, 1:-1], atol=1e-9)
-
-
-def test_distributed_pallas_tiled_matches_serial():
-    """The TILED windowed shard engine (Decomp(..., tile=T)): each shard
-    streams its resident extended block through the windowed kernel in
-    T x T tiles (the path huge per-chip shards take when the full
-    extended block exceeds VMEM). Must track serial like the full-block
-    engine does — including tiles narrower than the W=22 halo and an odd
-    step count (both parities)."""
-    import tpuvof as tv
-
-    n = 64
-    cfg = tv.SimConfig(grid=tv.Grid2D(n, n),
-                       num=tv.Numerics(backend="pallas_mono"))
-    state = tv.init_state(cfg, ic=1)
-    state = tv.State(*(a.astype(jnp.float64) for a in state))
-    want = tv.simulate(cfg.replace(num=tv.Numerics()), state, 5)
-
-    for px, py, tile in ((2, 2, 16), (1, 2, 8)):
-        dec = Decomp(cfg, make_mesh(px, py), tile=tile)
-        assert dec.shard_tile() == (tile, tile)
-        got = dec.simulate(state, 5)
-        for name, atol in (("F", 1e-13), ("u", 1e-13), ("v", 1e-13),
-                           ("p", 1e-9)):
-            np.testing.assert_allclose(
-                np.asarray(getattr(got, name))[1:-1, 1:-1],
-                np.asarray(getattr(want, name))[1:-1, 1:-1], atol=atol,
-                err_msg=f"{name} {px}x{py} tile={tile}")
-
-
-def test_distributed_pallas_strips_matches_serial():
-    """The STRIP-STREAMING shard engine (Decomp(..., engine='strips')):
-    each shard keeps its block resident in the strip engine's padded
-    layout and ONE kernel launch per step streams it through
-    double-buffered VMEM slots (the beyond-VMEM default, preferred over
-    the tiled loop). Must track serial like the other pallas shard
-    engines — multi-strip (tx < nxl), both mesh orientations, corners
-    (2x2), and an odd step count (both parities). The unwritten resident
-    margins carry NaN junk between steps on this path; agreement here
-    also pins the load sanitizer + (W+1)-band refresh interplay."""
-    import tpuvof as tv
-
-    n = 64
-    cfg = tv.SimConfig(grid=tv.Grid2D(n, n),
-                       num=tv.Numerics(backend="pallas_mono"))
-    state = tv.init_state(cfg, ic=1)
-    state = tv.State(*(a.astype(jnp.float64) for a in state))
-    want = tv.simulate(cfg.replace(num=tv.Numerics()), state, 5)
-
-    for px, py, tx in ((2, 2, 8), (1, 2, 16), (2, 1, 8)):
-        dec = Decomp(cfg, make_mesh(px, py), engine="strips", tx=tx)
-        assert dec.shard_strips_layout() is not None
-        got = dec.simulate(state, 5)
-        for name, atol in (("F", 1e-13), ("u", 1e-13), ("v", 1e-13),
-                           ("p", 1e-9)):
-            np.testing.assert_allclose(
-                np.asarray(getattr(got, name))[1:-1, 1:-1],
-                np.asarray(getattr(want, name))[1:-1, 1:-1], atol=atol,
-                err_msg=f"{name} {px}x{py} tx={tx}")
-
-
-def test_shard_tile_validation():
-    """tile must divide the local blocks; automatic selection prefers the
-    full-block kernel whenever the extended block fits VMEM."""
-    cfg = tv.SimConfig(grid=tv.Grid2D(64, 64),
-                       num=tv.Numerics(backend="pallas_mono"))
-    with pytest.raises(ValueError, match="does not divide"):
-        Decomp(cfg, make_mesh(2, 2), tile=24).shard_tile()
-    assert Decomp(cfg, make_mesh(2, 2)).shard_tile() is None
-
-
-def test_shard_engine_routing_and_validation():
-    """backend='pallas_strips'/'pallas_tiled' must reach their engines
-    through Decomp (they are public CLI choices; a silent XLA fallback
-    here once measured the wrong engine), tx must be a multiple of 8
-    (the strips layout's DMA-alignment + validity-cone invariants), and
-    a forced engine= that cannot run raises instead of degrading."""
-    mesh = make_mesh(2, 2)
-    cfg_s = tv.SimConfig(grid=tv.Grid2D(64, 64),
-                         num=tv.Numerics(backend="pallas_strips"))
-    dec = Decomp(cfg_s, mesh)
-    dec.make_simulate()
-    assert dec._strips_lay_static is not None  # strips engine in play
-
-    cfg_t = cfg_s.replace(num=tv.Numerics(backend="pallas_tiled"))
-    dec = Decomp(cfg_t, mesh)
-    dec.make_simulate()
-    assert dec._shard_tile_static is not None  # tiled engine in play
-
-    with pytest.raises(ValueError, match="multiple of 8"):
-        Decomp(cfg_s, mesh, engine="strips", tx=12).make_simulate()
-    from tpuvof.pallas_kernels.step_kernels import strips_layout_2d
-    with pytest.raises(ValueError, match="multiple of 8"):
-        strips_layout_2d(cfg_s, tx=12)
-
-    # trajectory through the backend-routed strips shard engine
-    state = tv.init_state(cfg_s, ic=1)
-    state = tv.State(*(a.astype(jnp.float64) for a in state))
-    want = tv.simulate(cfg_s.replace(num=tv.Numerics()), state, 3)
-    got = Decomp(cfg_s, mesh).simulate(state, 3)
-    np.testing.assert_allclose(np.asarray(got.F)[1:-1, 1:-1],
-                               np.asarray(want.F)[1:-1, 1:-1], atol=1e-13)
-
-
-def test_strips_preference_falls_back_to_full_block_not_xla():
-    """backend='pallas_strips' on shards no strip height divides
-    (100 is not a multiple of 8) must keep the admissible FULL-BLOCK
-    windowed kernel — the old path dropped to the ~3x slower XLA step
-    with a factually wrong 'exceeds the VMEM envelope' warning."""
-    cfg = tv.SimConfig(grid=tv.Grid2D(200, 200),
-                       num=tv.Numerics(backend="pallas_strips"))
-    dec = Decomp(cfg, make_mesh(2, 2))
-    assert dec.pallas_shard_supported()
-    assert dec.shard_strips_layout() is None
-    with pytest.warns(UserWarning, match="full-block windowed kernel"):
-        run = dec.make_simulate()
-    # full-block engine in play: bit-compatible with the canonical path
-    state = tv.init_state(cfg, ic=1)
-    state = tv.State(*(a.astype(jnp.float64) for a in state))
-    want = tv.simulate(cfg.replace(num=tv.Numerics()), state, 3)
-    got = dec.gather_state(run(dec.scatter_state(state), 3))
-    np.testing.assert_allclose(np.asarray(got.F)[1:-1, 1:-1],
-                               np.asarray(want.F)[1:-1, 1:-1], atol=1e-13)
-
-
-def test_forced_engine_with_rbsor_raises():
-    """engine= is the documented hard force: combined with a pressure
-    solver only the XLA step implements, it must raise — not silently
-    measure the XLA step under a forced-engine label."""
-    cfg = tv.SimConfig(grid=tv.Grid2D(64, 64),
-                       num=tv.Numerics(backend="pallas_mono",
-                                       pressure_solver="rbsor"))
-    with pytest.raises(ValueError, match="HYBRID"):
-        Decomp(cfg, make_mesh(2, 2), engine="strips").make_simulate()
-
-
 def test_distributed_matches_serial_from_non_bc_consistent_state():
     """The serial driver applies apply_bc once at entry before its lean
     steps; the distributed run must do the same (it did not, and a state
@@ -262,28 +100,3 @@ def test_distributed_rbsor_matches_serial():
             np.asarray(getattr(got, name))[1:-1, 1:-1],
             np.asarray(getattr(want, name))[1:-1, 1:-1],
             atol=1e-12, err_msg=name)
-
-
-def test_distributed_rbsor_with_pallas_backend_runs_hybrid():
-    """backend='pallas_mono' + rbsor: since round 5 this routes to the
-    HYBRID per-shard step (Pallas phase kernels around the distributed
-    solve) — no fallback warning, trajectory matches serial rbsor at
-    f64 (the round-4 behavior was a warn + whole-step XLA fallback)."""
-    import warnings
-
-    num = tv.Numerics(backend="pallas_mono", pressure_solver="rbsor",
-                      sor_tol=1e-6, sor_max_iter=500)
-    cfg = tv.SimConfig(grid=tv.Grid2D(64, 64), num=num)
-    state = tv.init_state(cfg, ic=1)
-    state = tv.State(*(jnp.asarray(np.asarray(a), jnp.float64)
-                       for a in state))
-    want = tv.simulate(
-        cfg.replace(num=tv.Numerics(pressure_solver="rbsor", sor_tol=1e-6,
-                                    sor_max_iter=500)), state, 3)
-    dec = Decomp(cfg, make_mesh(2, 2))
-    assert dec.hybrid_shard_supported()
-    with warnings.catch_warnings():
-        warnings.simplefilter("error")  # any fallback warning = failure
-        got = dec.simulate(state, 3)
-    np.testing.assert_allclose(np.asarray(got.F)[1:-1, 1:-1],
-                               np.asarray(want.F)[1:-1, 1:-1], atol=1e-12)

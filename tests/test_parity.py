@@ -1,4 +1,4 @@
-"""Numerical parity of the vectorized TPU ops against the loop-based spec.
+"""Numerical parity of the vectorized JAX ops against the loop-based spec.
 
 Each op is compared in float64 on randomized states (tight tolerances), and
 the full solver trajectory is compared over many steps for all three initial

@@ -1,111 +1,120 @@
-"""Mesh planner (parallel/plan.py): pure shape math, ranked by the same
-admission rules the engines enforce — a top-ranked plan must actually
-run its claimed engine when a Decomp/Decomp3D is built at that shape."""
-import numpy as np
+"""Mesh planner (parallel/plan.py): divisibility, HBM footprint per shard
+and halo surface per step decide the ranking of (px, py) meshes."""
 import pytest
-import jax
-from jax.sharding import Mesh
 
 import tpuvof as tv
 from tpuvof.grid import Grid3D
-from tpuvof.parallel import (
-    Decomp3D,
-    format_plans,
-    pallas_admission_3d,
-    plan_mesh_2d,
-    plan_mesh_3d,
-)
+from tpuvof.parallel import format_plans, plan_mesh_2d, plan_mesh_3d
+from tpuvof.parallel.plan import H100_BYTES, MIN_LOCAL, WORKSET
 
 
-def test_plan_3d_flagship_8_chips_prefers_pencil():
-    """200^3 on 8 chips: x-slabs are INADMISSIBLE (nx/px = 25 is odd —
-    the slab-chunk alignment can never be met), so every pallas-capable
-    shape is a pencil; the planner must rank one first and mark 8x1 as
-    the XLA fallback with the admission reason."""
-    plans = plan_mesh_3d(Grid3D(200, 200, 200), 8)
-    assert plans[0].engine == "pallas-pencil"
-    assert plans[0].score == max(p.score for p in plans)
-    slab = next(p for p in plans if (p.px, p.py) == (8, 1))
-    assert slab.engine == "xla" and "even" in slab.detail
+def _cfg(n, n_jacobi=10):
+    return tv.SimConfig(grid=tv.Grid2D(n, n),
+                        num=tv.Numerics(n_jacobi=n_jacobi))
+
+
+def test_plan_2d_single_device_has_no_halo():
+    (plan,) = plan_mesh_2d(_cfg(512), 1)
+    assert plan.mesh_shape == (1, 1) and plan.layout == "single"
+    assert plan.halo_mb_step == 0.0 and plan.fits
+    assert plan.hbm_mb == pytest.approx(
+        4 * 514 * 514 * 4 * WORKSET / 2**20, rel=1e-3)
+
+
+def test_plan_2d_square_blocks_win_at_16_devices():
+    """At 16 devices a 4x4 block ships 4 lines of 130 per exchange, a
+    16x1 slab 2 lines of 514: blocks have the smaller surface."""
+    plans = plan_mesh_2d(_cfg(512), 16)
+    assert plans[0].mesh_shape == (4, 4)
+    by = {p.mesh_shape: p for p in plans}
+    assert by[(4, 4)].halo_mb_step < by[(16, 1)].halo_mb_step
+    assert by[(16, 1)].halo_mb_step == by[(1, 16)].halo_mb_step
+
+
+def test_plan_2d_halo_scales_with_jacobi_sweeps():
+    """The pressure solve exchanges p once per sweep: more sweeps, more
+    bytes per step, same ranking."""
+    few = {p.mesh_shape: p for p in plan_mesh_2d(_cfg(512, 2), 4)}
+    many = {p.mesh_shape: p for p in plan_mesh_2d(_cfg(512, 40), 4)}
+    for shape in few:
+        assert many[shape].halo_mb_step > few[shape].halo_mb_step
+
+
+def test_plan_skips_indivisible_and_too_thin_meshes():
+    # 12 does not split 8 ways; 3 ways x 4 cells is the thinnest allowed
+    shapes = {p.mesh_shape for p in plan_mesh_2d(_cfg(12), 8)}
+    assert shapes == {(2, 4), (4, 2)}
+    assert MIN_LOCAL == 3
+    thin = {p.mesh_shape for p in plan_mesh_2d(_cfg(8), 4)}
+    assert (4, 1) not in thin and (2, 2) in thin  # 8/4 = 2 < MIN_LOCAL
+
+
+def test_plan_marks_shards_beyond_device_memory():
+    """A state larger than one H100's 80 GiB is ranked last and marked:
+    32768^2 needs ~104 GiB as one shard, ~52 GiB per card over 2."""
+    (one,) = plan_mesh_2d(_cfg(32768), 1)
+    assert not one.fits and one.hbm_mb > H100_BYTES / 2**20
+    assert "no" in format_plans([one]).splitlines()[1]
+    assert all(p.fits for p in plan_mesh_2d(_cfg(32768), 2))
+    assert all(p.fits for p in plan_mesh_2d(_cfg(32768), 8))
 
 
 def test_plan_3d_slab_when_it_fits():
-    plans = plan_mesh_3d(Grid3D(64, 64, 64), 2)
-    shapes = {(p.px, p.py): p for p in plans}
-    assert shapes[(2, 1)].engine == "pallas-slab"
-    assert shapes[(1, 2)].engine == "pallas-pencil"
+    """200^3 on 4 cards: x slabs and 2x2 pencils move nearly the same
+    plane surface; slabs move slightly less in half the collectives, and
+    timed faster on four H100s. On 2 cards the x slab wins the tie."""
+    four = plan_mesh_3d(Grid3D(200, 200, 200), 4)
+    assert four[0].mesh_shape == (4, 1) and four[0].layout == "x-slabs"
+    by4 = {p.mesh_shape: p for p in four}
+    assert by4[(2, 2)].layout == "pencils"
+    assert by4[(4, 1)].halo_mb_step < by4[(2, 2)].halo_mb_step
+    two = plan_mesh_3d(Grid3D(200, 200, 200), 2)
+    assert two[0].mesh_shape == (2, 1) and two[0].layout == "x-slabs"
+
+
+def test_plan_3d_flagship_8_chips_prefers_pencil():
+    """200^3 on 8 cards: a 4x2 pencil ships less than an 8x1 slab."""
+    plans = plan_mesh_3d(Grid3D(200, 200, 200), 8)
+    assert plans[0].mesh_shape == (4, 2) and plans[0].layout == "pencils"
+    by = {p.mesh_shape: p for p in plans}
+    assert by[(4, 2)].halo_mb_step < by[(8, 1)].halo_mb_step
 
 
 def test_plan_3d_agrees_with_decomp3d_admission():
-    """The planner's verdicts are the constructor's: an admitted shape
-    builds without the fallback warning; a rejected one warns."""
-    g = Grid3D(32, 32, 32)
-    adm = pallas_admission_3d(g, 2, 2, n_jacobi=2)
-    assert adm["ok"] and adm["pencil"]
-    devs = np.array(jax.devices()[:4]).reshape(2, 2)
-    dec = Decomp3D(g, Mesh(devs, ("mx", "my")), n_jacobi=2,
-                   backend="pallas")
-    assert dec.backend == "pallas" and dec.pencil
-    assert (dec.W, dec.Wy, dec.nloc, dec.nyE) == (
-        adm["W"], adm["Wy"], adm["nloc"], adm["nyE"])
+    """Every ranked shape is one Decomp3D accepts (8 virtual devices)."""
+    import jax
+    import numpy as np
+    from jax.sharding import Mesh
 
-    bad = pallas_admission_3d(g, 2, 4)  # ny/py = 8 < Wy+1 = 15
-    assert not bad["ok"] and "ny/py" in bad["why"]
+    from tpuvof.parallel import Decomp3D
+
+    g = Grid3D(24, 24, 24)
+    plans = plan_mesh_3d(g, 8)
+    assert {p.mesh_shape for p in plans} == {(1, 8), (2, 4), (4, 2),
+                                             (8, 1)}
+    devs = np.array(jax.devices()[:8])
+    for p in plans:
+        mesh = (Mesh(devs, ("mx",)) if p.py == 1
+                else Mesh(devs.reshape(p.px, p.py), ("mx", "my")))
+        dec = Decomp3D(g, mesh)
+        assert (dec.nxl, dec.nyl) == (24 // p.px, 24 // p.py)
 
 
 def test_admission_table_512_cube():
-    """BASELINE.md's beyond-envelope scale-out claim, pinned (VERDICT r4
-    #7): 512^3 admits on a 2x8 pencil mesh (290-plane x (96x640) extended
-    block, B=8 chunked Jacobi inside the VMEM cap), is REJECTED on 2x4
-    (the (160x640) planes put the resident volume past the cap), and
-    admits on 4x4. scripts/tpu_pencil_512_shard.py compiles + executes
-    the (2,8) per-shard program at this exact geometry on real hardware
-    — the round-5 run that exposed the 2x-window VMEM accounting bug the
-    current jacobi3d._vmem_need model replaces."""
-    g = Grid3D(512, 512, 512)
-
-    a28 = pallas_admission_3d(g, 2, 8)
-    assert a28["ok"] and a28["pencil"]
-    assert (a28["W"], a28["Wy"], a28["nloc"], a28["nyE"], a28["B"]) == \
-        (16, 14, 288, 92, 8)
-    assert a28["plane"] == (96, 640)
-
-    a24 = pallas_admission_3d(g, 2, 4)
-    assert not a24["ok"] and a24["B"] is None
-    assert "VMEM" in a24["why"]
-
-    a44 = pallas_admission_3d(g, 4, 4)
-    assert a44["ok"] and a44["B"] == 8
-
-    # the planner's verdicts agree: 16-chip shapes rank pencil engines,
-    # the 8-chip (2,4) shape is marked as the XLA fallback
-    verdicts16 = {(p.px, p.py): p.engine for p in plan_mesh_3d(g, 16)}
-    assert verdicts16[(2, 8)] == "pallas-pencil"
-    assert verdicts16[(4, 4)] == "pallas-pencil"
-    verdicts8 = {(p.px, p.py): p.engine for p in plan_mesh_3d(g, 8)}
-    assert verdicts8[(2, 4)] == "xla"
-
-
-def test_plan_2d_within_envelope_uses_full_block():
-    cfg = tv.SimConfig(grid=tv.Grid2D(512, 512))
-    plans = plan_mesh_2d(cfg, 4)
-    assert plans and plans[0].engine == "pallas-full"
-    assert all(plans[i].score >= plans[i + 1].score
-               for i in range(len(plans) - 1))
-
-
-def test_plan_2d_beyond_envelope_uses_streaming_engine():
-    """Shards whose extended block exceeds VMEM must NOT be ranked as
-    full-block: 8192^2 on 4 chips -> 4096^2-class shards stream."""
-    cfg = tv.SimConfig(grid=tv.Grid2D(8192, 8192))
-    plans = plan_mesh_2d(cfg, 4)
-    assert plans[0].engine in ("pallas-strips", "pallas-tiled")
+    """512^3: 5 f32 fields are 2.7 GB with ghosts; times WORKSET the one-
+    card plan needs ~17.6 GB and fits an 80 GiB H100. 1024^3 needs
+    ~140 GB on one card and fits on 2 or more."""
+    (one,) = plan_mesh_3d(Grid3D(512, 512, 512), 1)
+    assert one.fits and one.hbm_mb == pytest.approx(
+        5 * 514**3 * 4 * WORKSET / 2**20, rel=1e-3)
+    big = Grid3D(1024, 1024, 1024)
+    (single,) = plan_mesh_3d(big, 1)
+    assert not single.fits
+    assert all(p.fits for p in plan_mesh_3d(big, 2))
+    assert all(p.fits for p in plan_mesh_3d(big, 4))
 
 
 def test_plan_formatting_and_no_fit():
-    assert "mesh" in format_plans(plan_mesh_3d(Grid3D(64, 64, 64), 2))
-    # 7 devices divide nothing in a 64^2 grid except 1x7/7x1, which
-    # don't divide 64 -> empty plan list, friendly message
-    msg = format_plans(plan_mesh_2d(tv.SimConfig(grid=tv.Grid2D(64, 64)),
-                                    7))
-    assert "no mesh shape" in msg
+    out = format_plans(plan_mesh_3d(Grid3D(64, 64, 64), 4))
+    assert "mesh" in out and "x-slabs" in out and "halo MB/step" in out
+    assert "no mesh shape" in format_plans(plan_mesh_2d(_cfg(7), 4))

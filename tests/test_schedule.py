@@ -27,26 +27,6 @@ def test_simulate_2d_chunked_with_istep0_matches_continuous():
             err_msg=name)
 
 
-def test_simulate_strips_chunked_with_istep0_matches_continuous():
-    """The strip-streaming driver (_simulate_strips: padded-resident
-    scan) obeys the same istep0 contract — chunk boundaries re-pad the
-    layout, so this also pins that pad/unpad round trips preserve the
-    trajectory bit-for-bit. tx=8 forces 3 strips on the 24² grid."""
-    from tpuvof.pallas_kernels.step_kernels import strips_layout_2d
-
-    cfg = tv.SimConfig(grid=tv.Grid2D(24, 24),
-                       num=tv.Numerics(backend="pallas_strips"))
-    assert strips_layout_2d(cfg) is not None
-    s0 = tv.init_state(cfg, ic=1)
-    s0 = tv.State(*(jnp.asarray(np.asarray(a), jnp.float64) for a in s0))
-    want = tv.simulate(cfg, s0, 7)
-    got = tv.simulate(cfg, tv.simulate(cfg, s0, 3), 4, istep0=3)
-    for name in ("F", "u", "v", "p"):
-        np.testing.assert_array_equal(
-            np.asarray(getattr(got, name)), np.asarray(getattr(want, name)),
-            err_msg=name)
-
-
 def test_simulate_3d_chunked_with_istep0_matches_continuous():
     g = Grid3D(12, 12, 12)
     s0 = tv.init_state_3d(g, ic=1)

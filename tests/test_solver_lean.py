@@ -2,10 +2,11 @@
 pipeline from any BC-consistent state — including ghost entries."""
 import numpy as np
 import jax.numpy as jnp
+import pytest
 
 import tpuvof as tv
 from tpuvof.ops import apply_bc
-from tpuvof.solver import step
+from tpuvof.solver import step, step_counted
 
 
 def bc_state(state):
@@ -35,3 +36,23 @@ def test_lean_chain_stays_exact():
         b = step(cfg, b, even_step=(i % 2 == 0), lean=True)
     for name, x, y in zip(("F", "u", "v", "p"), a, b):
         np.testing.assert_array_equal(np.asarray(x), np.asarray(y), err_msg=name)
+
+
+@pytest.mark.parametrize("solver", ["jacobi", "rbsor", "mg"])
+def test_step_counted_is_step_plus_its_solve_count(solver):
+    """step_counted returns step's state exactly, and the iterations its
+    pressure solve took: the fixed sweep count (jacobi), or the
+    while_loop's trip count within [1, sor_max_iter] (rbsor, mg)."""
+    num = tv.Numerics(pressure_solver=solver, sor_max_iter=40,
+                      sor_tol_rel=1e-2 if solver == "mg" else 0.0)
+    cfg = tv.SimConfig(grid=tv.Grid2D(16, 16), num=num)
+    state = bc_state(tv.simulate(cfg, tv.init_state(cfg, ic=1), 3))
+    got, iters = step_counted(cfg, state, even_step=True, lean=True)
+    want = step(cfg, state, even_step=True, lean=True)
+    for name, x, y in zip(("F", "u", "v", "p"), got, want):
+        np.testing.assert_array_equal(np.asarray(x), np.asarray(y),
+                                      err_msg=name)
+    if solver == "jacobi":
+        assert int(iters) == num.n_jacobi
+    else:
+        assert 1 <= int(iters) <= num.sor_max_iter

@@ -3,8 +3,8 @@
 
 An ABSOLUTE sor_tol is unreachable for production-scale flows (the rhs is
 rho/dt * div(u*) ~ 1e8), so without a relative mode every upgraded step
-burns the iteration cap / runs to the f32 floor (BASELINE.md "Production
-cost of the upgrade modes"). sor_tol_rel raises the effective tolerance to
+burns the iteration cap / runs to the f32 floor. sor_tol_rel raises the
+effective tolerance to
 tol_rel * max|rhs'| per solve. These tests pin:
   - all four solver sites honor it (2-D/3-D rbsor, mg, distributed rbsor);
   - the solve actually STOPS at the relative target (early exit), not at

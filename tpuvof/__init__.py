@@ -1,15 +1,16 @@
-"""tpuvof: a TPU-native two-phase incompressible Navier-Stokes / VOF framework.
+"""tpuvof: a two-phase incompressible Navier-Stokes / VOF framework in JAX.
 
-A from-scratch JAX/XLA/Pallas re-design with the capabilities of the
-reference Taichi solver (houkensjtu/taichi-2d-vof): staggered MAC grid,
+A from-scratch JAX/XLA re-design with the capabilities of the reference
+Taichi solver (houkensjtu/taichi-2d-vof): staggered MAC grid,
 Rudman/Zalesak flux-corrected VOF transport, Brackbill CSF surface tension
 with Youngs normals, Chorin projection with fixed-iteration Jacobi,
 canonical initial conditions, five visualization modes with PNG/video
 export, a differentiable-simulation path (optimize F0 through the full
-solver), an experimental 3-D extension with VTK export — plus TPU-first
-extras the reference lacks: one fused jitted step under `lax.scan`,
-`shard_map` domain decomposition with ICI halo exchange, Pallas kernels
-for the hot stencils, checkpoints/resume and structured metrics.
+solver), an experimental 3-D extension with VTK export — plus extras the
+reference lacks: one jitted step under `lax.scan`, `shard_map` domain
+decomposition with `ppermute` halo exchange, multigrid and red-black SOR
+pressure solvers, checkpoints/resume and structured metrics. It runs on
+one GPU or a mesh of them; the tests run on the CPU.
 """
 
 from .grid import Grid2D, Grid3D

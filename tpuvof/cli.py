@@ -36,16 +36,6 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--steps", type=int, default=2000)
     p.add_argument("--dt", type=float, default=4e-6)
     p.add_argument("--jacobi", type=int, default=10, help="pressure iterations per step")
-    p.add_argument("--backend",
-                   choices=["xla", "pallas", "pallas_mono", "pallas_tiled",
-                            "pallas_strips"],
-                   default="xla",
-                   help="step implementation: pure-XLA, fused Pallas phase "
-                        "kernels, the whole-step Pallas mono-kernel, the "
-                        "tiled mono engine, or the strip-streaming engine "
-                        "(one HBM-resident launch/step; beyond the VMEM "
-                        "envelope pallas_mono auto-upgrades to strips, "
-                        "then tiled)")
     p.add_argument("--no-cfl-warn", action="store_true",
                    help="disable the per-step Courant tracking (the "
                         "reference's in-kernel CFL warning, surfaced at "
@@ -71,8 +61,7 @@ def build_parser() -> argparse.ArgumentParser:
                         "max(--sor-tol, REL * max|rhs|) per solve — the "
                         "bounded-cost production mode (an absolute tol is "
                         "unreachable for production-scale flows, so without "
-                        "this every step burns the iteration cap; "
-                        "BASELINE.md). Try 1e-2.")
+                        "this every step burns the iteration cap). Try 1e-2.")
     p.add_argument("--profile-dir", default=None,
                    help="write a jax.profiler trace of the run to this dir")
     # output
@@ -118,7 +107,7 @@ def build_parser() -> argparse.ArgumentParser:
                         "the case's target (test/diff_fct.py equivalent)")
     p.add_argument("--adjoint", choices=["unrolled", "selfadjoint"],
                    default="selfadjoint",
-                   help="pressure-solve adjoint: selfadjoint is the diff_vof_replaced-style custom adjoint (robust on TPU); unrolled differentiates through the iterations")
+                   help="pressure-solve adjoint: selfadjoint is the diff_vof_replaced-style custom adjoint; unrolled differentiates through the iterations")
     # 3-D mode (3dvof.py equivalent: dam break + VTK dumps)
     p.add_argument("--three-d", action="store_true", dest="three_d",
                    help="run the 3-D dam break (VTK volume every frame interval)")
@@ -281,9 +270,6 @@ def run_3d(args) -> int:
         print(f">>> resumed from {args.resume} at step {istep0}")
     else:
         state = init_state_3d(g, ic=args.ic)
-    backend = ("pallas" if args.backend in ("pallas", "pallas_mono",
-                                            "pallas_tiled", "pallas_strips")
-               else "xla")
     dec = None
     if args.mesh:
         import jax
@@ -308,7 +294,6 @@ def run_3d(args) -> int:
         else:
             mesh = Mesh(np.array(devs[:px]), ("mx",))
         dec = Decomp3D(g, mesh, dt=args.dt, n_jacobi=args.jacobi,
-                       backend=backend,
                        pressure_solver=args.pressure_solver,
                        sor_tol=args.sor_tol, sor_tol_rel=args.sor_tol_rel,
                        csf=args.csf)
@@ -329,7 +314,7 @@ def run_3d(args) -> int:
                 # istep0 keeps the reference's continuous istep % 3 sweep
                 # rotation across frame chunks (and across --resume)
                 state = simulate_3d(g, state, k, args.dt, args.jacobi,
-                                    backend=backend, istep0=done,
+                                    istep0=done,
                                     pressure_solver=args.pressure_solver,
                                     sor_tol=args.sor_tol,
                                     sor_tol_rel=args.sor_tol_rel,
@@ -503,6 +488,9 @@ def main(argv=None) -> int:
             plans = plan_mesh_2d(cfg, args.plan_mesh)
         print(format_plans(plans))
         return 0
+    from .utils.runtime import enable_compile_cache
+
+    enable_compile_cache()
     if args.case:
         return run_advection(args)
     if args.optimize_case:
@@ -522,7 +510,6 @@ def main(argv=None) -> int:
     cfg = tv.SimConfig(
         grid=tv.Grid2D(args.nx, ny).validate(),
         num=tv.Numerics(dt=args.dt, n_jacobi=args.jacobi,
-                        backend=args.backend,
                         pressure_solver=args.pressure_solver,
                         sor_tol=args.sor_tol,
                         sor_tol_rel=args.sor_tol_rel),

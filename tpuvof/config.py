@@ -83,13 +83,6 @@ class Numerics:
     # (diff_vof.py semantics); 'selfadjoint' installs the hand-written
     # adjoint mirroring diff_vof_replaced.py:303-330.
     pressure_adjoint: str = "unrolled"
-    # 'xla' = pure-jnp step; 'pallas' = fused VMEM-resident phase kernels;
-    # 'pallas_mono' = whole-step VMEM kernel (auto-upgrades to the
-    # strip-streaming then the tiled engine beyond the VMEM envelope);
-    # 'pallas_strips' = one strip-streaming launch per step explicitly;
-    # 'pallas_tiled' = the tiled mono engine explicitly (forward solver
-    # only; the differentiable path stays on 'xla').
-    backend: str = "xla"
     # 'jacobi' = the reference's fixed-iteration sweep; 'rbsor' = red-black
     # SOR iterated to an on-device residual tolerance; 'mg' = residual-
     # driven geometric-multigrid V-cycles (ops/mg.py — O(1) cycles in grid
@@ -97,8 +90,7 @@ class Numerics:
     # parallel/mg.py); 'auto' = mg wherever the global grid coarsens (all
     # extents even and >= 8), rbsor otherwise — serial and distributed
     # alike (resolution sites: solver.resolve_auto, solver3d,
-    # Decomp/Decomp3D; measurements: BASELINE.md "Upgraded pressure
-    # solvers on the chip"). Under pressure_adjoint='selfadjoint' both
+    # Decomp/Decomp3D). Under pressure_adjoint='selfadjoint' both
     # residual-driven solvers are differentiable via the implicit-
     # function adjoint (ops/mg.mg_solve_implicit, ops/poisson.
     # _rbsor_implicit); 'unrolled' supports 'jacobi' only.
@@ -113,8 +105,7 @@ class Numerics:
     # > 0, each solve stops at max(sor_tol, sor_tol_rel * max|rhs'|)
     # where rhs' is that solve's nullspace-projected right-hand side.
     # An ABSOLUTE sor_tol is unreachable for production-scale flows
-    # (rhs ~ rho/dt * div(u*) reaches 1e8; BASELINE.md "Production cost
-    # of the upgrade modes"), so without this every step burns the
+    # (rhs ~ rho/dt * div(u*) reaches 1e8), so without this every step burns the
     # iteration cap / runs to the f32 floor. sor_tol_rel makes the
     # upgrade cost bounded and scale-invariant: the warm-started
     # per-step solve terminates after O(1) cycles/sweeps once the flow

@@ -83,11 +83,11 @@ def diff_config(n: int = 80, n_jacobi: int = 10,
     adjoint defaults to 'selfadjoint' (the diff_vof_replaced.py pressure
     adjoint, which there uses 20 iterations): besides skipping the
     rematerialized Jacobi chain in the backward pass, it is the numerically
-    robust choice on TPU — XLA's auto-transposed Jacobi backward is stable
-    on CPU but explodes ~x1.13/step on the TPU backend (measured: max|grad|
-    4 -> 3e2 -> 1e9 -> 3e20 -> inf at 10/50/100/200/400 steps), freezing
-    the gated SGD. The hand-written adjoint stays bounded (~4) at every
-    horizon on both backends. 'unrolled' remains available for exact
+    robust choice — XLA's auto-transposed Jacobi backward is stable on CPU
+    but is not guaranteed to be on an accelerator backend, where it has
+    been seen to grow geometrically with the horizon (~x1.13/step), which
+    freezes the gated SGD. The hand-written adjoint stays bounded (~4) at
+    every horizon. 'unrolled' remains available for exact
     finite-difference gradient checks on CPU.
 
     pressure_solver upgrades the projection inside the differentiable

@@ -1,6 +1,6 @@
 """Staggered MAC-grid geometry.
 
-TPU-native re-design of the reference's module-level mesh globals
+JAX-native re-design of the reference's module-level mesh globals
 (reference: 2dvof.py:37-50, 3dvof.py:40-68). The grid is a frozen, hashable
 dataclass of scalars so it can be a `jax.jit` static argument; coordinate
 arrays are derived on demand as NumPy constants (they are baked into the

@@ -1,5 +1,11 @@
 """Output artifacts and checkpointing (layer L4).
 
+Rendered frames are written as PNG with the standard library alone
+(`write_png`); matplotlib and PIL are imported only for the extras that
+need them (the -s contourf figure, the vector overlay, --gif, and the
+optimization figures), and `optional_import` names the missing package
+when one is absent.
+
 Reference outputs: PNG frames via matplotlib contourf (2dvof.py:563-571),
 per-opt GUI screenshots (diff_vof.py:554), VTK volumes via pyevtk
 (3dvof.py:624-627). Checkpoint/resume does not exist in the reference
@@ -12,8 +18,10 @@ legacy VTK STRUCTURED_POINTS, binary big-endian f32 — readable by ParaView
 """
 from __future__ import annotations
 
+import importlib
 import json
-import os
+import struct
+import zlib
 from dataclasses import asdict
 
 import numpy as np
@@ -22,6 +30,8 @@ from .config import SimConfig
 from .state import State
 
 __all__ = [
+    "optional_import",
+    "write_png",
     "save_frame_png",
     "save_contour_png",
     "save_side_by_side_png",
@@ -38,7 +48,7 @@ def save_side_by_side_png(path: str, F_current, F_target):
     """The in-optimization current-vs-target buffer (diff_vof.py:448-454,
     526-554: get_field_to_buf stacks the evolving F beside Ftarget in one
     window each epoch)."""
-    plt = _plt()
+    plt = _plt("the optimization figures")
 
     fig, axes = plt.subplots(1, 2, figsize=(10, 5))
     for ax, (title, field) in zip(
@@ -56,7 +66,7 @@ def save_grad_png(path: str, grad):
     """Gradient-field rendering (test/diff_fct.py:370-375: F.grad scaled
     into a display buffer beside the optimization view); diverging colormap
     centered on zero so sign structure is visible."""
-    plt = _plt()
+    plt = _plt("the optimization figures")
 
     g = np.asarray(grad)
     lim = np.abs(g).max() or 1.0
@@ -67,7 +77,20 @@ def save_grad_png(path: str, grad):
     plt.close()
 
 
-def _plt():
+def optional_import(module: str, feature: str):
+    """Import an optional package for one feature, or raise an ImportError
+    that names the package and the feature."""
+    try:
+        return importlib.import_module(module)
+    except ImportError as e:
+        package = module.split(".")[0]
+        raise ImportError(
+            f"{feature} needs the optional package {package!r}, which is "
+            f"not installed; run without {feature} or install {package}"
+        ) from e
+
+
+def _plt(feature: str):
     """pyplot for file output WITHOUT globally switching the backend:
     matplotlib.use('Agg') after pyplot exists closes every open figure,
     which killed a live viewer/paint window whenever a frame was saved.
@@ -75,8 +98,7 @@ def _plt():
     force Agg when matplotlib is not yet loaded (headless safety)."""
     import sys
 
-    import matplotlib
-
+    matplotlib = optional_import("matplotlib", feature)
     if "matplotlib.pyplot" not in sys.modules:
         matplotlib.use("Agg")
     import matplotlib.pyplot as plt
@@ -84,16 +106,38 @@ def _plt():
     return plt
 
 
-def save_frame_png(path: str, rgb, arrows=None):
-    """Write an RGB frame (optionally with the arrow overlay) to a PNG."""
-    plt = _plt()
+def write_png(path: str, img) -> None:
+    """Write an (h, w, 3) uint8 image as an 8-bit RGB PNG using only the
+    standard library (zlib + struct): one IHDR, one IDAT, filter type 0
+    on every row."""
+    img = np.ascontiguousarray(img, dtype=np.uint8)
+    h, w, c = img.shape
+    if c != 3:
+        raise ValueError(f"expected an (h, w, 3) image, got {img.shape}")
+    raw = np.concatenate([np.zeros((h, 1), np.uint8),
+                          img.reshape(h, w * 3)], axis=1).tobytes()
 
+    def chunk(tag: bytes, data: bytes) -> bytes:
+        return (struct.pack(">I", len(data)) + tag + data
+                + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
+
+    with open(path, "wb") as f:
+        f.write(b"\x89PNG\r\n\x1a\n")
+        f.write(chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0)))
+        f.write(chunk(b"IDAT", zlib.compress(raw, 6)))
+        f.write(chunk(b"IEND", b""))
+
+
+def save_frame_png(path: str, rgb, arrows=None):
+    """Write an RGB frame (optionally with the arrow overlay) to a PNG.
+    Without arrows no plotting package is touched."""
     rgb = np.asarray(rgb)
     # frame arrays are (x, y); images are (row=y downward, col=x)
     img = np.transpose(rgb, (1, 0, 2))[::-1]
     if arrows is None:
-        plt.imsave(path, np.clip(img, 0.0, 1.0))
+        write_png(path, np.round(np.clip(img, 0.0, 1.0) * 255.0))
         return
+    plt = _plt("the vectors view overlay")
     h, w = img.shape[:2]
     fig = plt.figure(figsize=(w / 100, h / 100), dpi=100)
     ax = fig.add_axes([0, 0, 1, 1])
@@ -117,7 +161,7 @@ def save_frame_png(path: str, rgb, arrows=None):
 def save_contour_png(path: str, F, Lx: float, Ly: float):
     """The reference's -s figure: plt.contourf(F.T, cmap=Blues), figure size
     (5, Ly/Lx*5), axes off (2dvof.py:563-571)."""
-    plt = _plt()
+    plt = _plt("the -s contourf figure")
 
     Fnp = np.asarray(F)
     fx, fy = 5, Ly / Lx * 5
@@ -202,7 +246,7 @@ def frames_to_gif(frame_paths, out_path: str, fps: int = 20):
     """Assemble PNG frames into a GIF — the in-framework replacement for the
     Taichi CLI video/gif tools the reference README delegates to
     (README.md:39-45)."""
-    from PIL import Image
+    Image = optional_import("PIL.Image", "--gif")
 
     frames = [Image.open(p).convert("P") for p in sorted(frame_paths)]
     if not frames:

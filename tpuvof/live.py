@@ -35,7 +35,9 @@ def live_loop(cfg: SimConfig, state: State, n_steps: int,
               steps_per_frame: int = 100, view: str = "vof",
               istep0: int = 0):
     """Run the interactive loop; returns (state, istep) at quit/finish."""
-    import matplotlib
+    from .io_utils import optional_import
+
+    matplotlib = optional_import("matplotlib", "--live")
     import matplotlib.pyplot as plt
 
     noninteractive = {b.lower() for b in matplotlib.rcsetup.non_interactive_bk}

@@ -62,7 +62,7 @@ def banner(cfg: SimConfig) -> str:
     """Startup banner with the reference's derived ratios (2dvof.py:95-98)."""
     g, fl, nm = cfg.grid, cfg.fluid, cfg.num
     return (
-        f">>> A TPU-native VOF solver (tpuvof).\n"
+        f">>> tpuvof: a two-phase VOF / Navier-Stokes solver in JAX.\n"
         f">>> Grid resolution: {g.nx} x {g.ny}, dt = {nm.dt:4.2e}\n"
         f">>> Density ratio: {fl.rho_l / fl.rho_g: 4.2f}, gravity: {fl.gy: 4.2f}, "
         f"sigma: {fl.sigma: 4.2f}\n"

@@ -63,9 +63,8 @@ def embed2(x, lo0: int, hi0: int, lo1: int, hi1: int):
     """Embed a 2-D block into a larger array padded with zeros: lo/hi give
     the number of zero rows/cols added on each side.
 
-    Implemented with concatenation instead of ``.at[...].set`` so the same
-    expression lowers inside Pallas TPU kernels (Mosaic has no scatter /
-    dynamic_update_slice); XLA produces identical values either way.
+    Implemented with concatenation instead of ``.at[...].set``; XLA
+    produces identical values either way.
     """
     d = x.dtype
     if lo0 or hi0:
@@ -90,8 +89,7 @@ def embed2(x, lo0: int, hi0: int, lo1: int, hi1: int):
 def embed3(x, lo0: int, hi0: int, lo1: int, hi1: int, lo2: int, hi2: int):
     """3-D :func:`embed2`: zero-pad ``x`` by (lo, hi) cells along each axis.
 
-    Same concatenation form as embed2 (lowers inside Pallas TPU kernels,
-    where Mosaic has no scatter/dynamic_update_slice)."""
+    Same concatenation form as embed2."""
     d = x.dtype
     for ax, (lo, hi) in enumerate(((lo0, hi0), (lo1, hi1), (lo2, hi2))):
         if not (lo or hi):
@@ -110,7 +108,7 @@ def embed3(x, lo0: int, hi0: int, lo1: int, hi1: int, lo2: int, hi2: int):
 
 def merge_interior(full, interior_val):
     """Replace the interior of ``full`` with ``interior_val`` (ghosts kept),
-    without partial-update primitives (Pallas-compatible)."""
+    without partial-update primitives."""
     import jax
 
     n0, n1 = full.shape
@@ -121,7 +119,7 @@ def merge_interior(full, interior_val):
 
 
 def merge_region(full, val, r0: int, r1: int, c0: int, c1: int):
-    """Replace full[r0:r1, c0:c1] with ``val`` (Pallas-compatible)."""
+    """Replace full[r0:r1, c0:c1] with ``val`` without a scatter."""
     import jax
 
     n0, n1 = full.shape

@@ -27,6 +27,7 @@ single axis-0 kernel serves both directions via transposition.
 """
 from __future__ import annotations
 
+import jax
 import jax.numpy as jnp
 
 from ..config import FCTVariant, Numerics
@@ -129,7 +130,8 @@ def _sweep_axis0(dx: float, dy: float, dt: float, var: FCTVariant, F, u, sync=No
 
 def fct_sweep_x(g: Grid2D, nm: Numerics, F, u, var: FCTVariant | None = None, sync=None):
     var = nm.fct if var is None else var
-    return _sweep_axis0(g.dx, g.dy, nm.dt, var, F, u, sync=sync)
+    with jax.named_scope("fct_x"):
+        return _sweep_axis0(g.dx, g.dy, nm.dt, var, F, u, sync=sync)
 
 
 def fct_sweep_y(g: Grid2D, nm: Numerics, F, v, var: FCTVariant | None = None, sync=None):
@@ -137,7 +139,9 @@ def fct_sweep_y(g: Grid2D, nm: Numerics, F, v, var: FCTVariant | None = None, sy
     # Square cells make the y-sweep the exact transpose of the x-sweep,
     # including the reference's dx-scaled limiter numerators (2dvof.py:417).
     sync_t = None if sync is None else (lambda a: sync(a.T).T)
-    return _sweep_axis0(g.dy, g.dx, nm.dt, var, F.T, v.T, sync=sync_t).T
+    with jax.named_scope("fct_y"):
+        return _sweep_axis0(g.dy, g.dx, nm.dt, var, F.T, v.T,
+                            sync=sync_t).T
 
 
 

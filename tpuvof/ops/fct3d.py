@@ -11,6 +11,7 @@ transposes of the axis-0 kernel.
 """
 from __future__ import annotations
 
+import jax
 import jax.numpy as jnp
 
 from ..grid import Grid3D
@@ -126,8 +127,7 @@ def _sh3(x, di=0, dj=0, dk=0):
 
 def sweep_x_masked(g: Grid3D, dt, F, vel, gi0):
     """One x-direction Rudman/Zalesak sweep (3dvof.py:366-541) in the
-    roll+mask form shared by the Pallas slab kernel
-    (pallas_kernels/step3d.py) and the windowed distributed sweep: plane l
+    roll+mask form of the windowed distributed sweep: plane l
     of the block holds global i-index gi0 + l (traced or static), all
     masks are global, and positions within 3 planes of a block edge are
     junk unless the edge is the true array edge. Non-interior positions
@@ -175,72 +175,17 @@ def sweep_x_masked(g: Grid3D, dt, F, vel, gi0):
     return jnp.where(int_m, clamp01(Ftd - corr * vol / dv), F)
 
 
-def sweep_inplane_masked(g: Grid3D, dt, F, vel, axis: int):
-    """One y- (axis=1) or z- (axis=2) sweep in roll+mask form, row-local:
-    valid for any subset of interior i-planes; non-interior positions
-    carry F through. Shared by the Pallas slab kernel — the in-plane twin
-    of sweep_x_masked."""
-    import jax
-
-    vol, dv_area, flux_scale, q_scale, final_div = _axis_scales(g, axis)
-    shape = F.shape
-    n_sweep = g.ny if axis == 1 else g.nz
-    o_hi = g.nz if axis == 1 else g.ny
-    idx = jax.lax.broadcasted_iota(jnp.int32, shape, axis)
-    io = jax.lax.broadcasted_iota(jnp.int32, shape, 2 if axis == 1 else 1)
-    o_int = (io >= 1) & (io <= o_hi)
-
-    def sh(x, d):
-        return _sh3(x, 0, d if axis == 1 else 0, d if axis == 2 else 0)
-
-    F_up = sh(F, -1)
-    fL = vel * dt * jnp.where(vel >= 0, F_up, F)
-    fH = vel * dt * jnp.where(vel <= 0, F_up, F)
-    a = jnp.where((idx >= 1) & o_int, fH - fL, 0.0)
-    dv = vol - dt * dv_area * (sh(vel, 1) - vel)
-    ftd = clamp01((F + (fL - sh(fL, 1)) * flux_scale) * vol / dv)
-    int_m = (idx >= 1) & (idx <= n_sweep) & o_int
-    Ftd = jnp.where(int_m, ftd, 0.0)
-    fmax = jnp.maximum(Ftd, jnp.maximum(sh(Ftd, -1), sh(Ftd, 1)))
-    fmin = jnp.minimum(Ftd, jnp.minimum(sh(Ftd, -1), sh(Ftd, 1)))
-    a_hi = sh(a, 1)
-    pp = jnp.maximum(0.0, a) - jnp.minimum(0.0, a_hi)
-    qp = (fmax - Ftd) * q_scale
-    rp = jnp.where(int_m & (pp > 0),
-                   jnp.minimum(1.0, qp / jnp.where(pp > 0, pp, 1.0)), 0.0)
-    pm = jnp.maximum(0.0, a_hi) - jnp.minimum(0.0, a)
-    qm = (Ftd - fmin) * q_scale
-    rm = jnp.where(int_m & (pm > 0),
-                   jnp.minimum(1.0, qm / jnp.where(pm > 0, pm, 1.0)), 0.0)
-    cfct = jnp.where(
-        (idx >= 1) & o_int,
-        jnp.where(a >= 0,
-                  jnp.minimum(rp, sh(rm, -1)),
-                  jnp.minimum(sh(rp, -1), rm)),
-        0.0,
-    )
-    corr = (sh(a, 1) * sh(cfct, 1) - a * cfct) / final_div
-    return jnp.where(int_m, clamp01(Ftd - corr * vol / dv), F)
-
-
-def sweep_masked_2axis(g: Grid3D, dt, F, vel, axis: int, gi0, gj0,
-                       nj_valid: int | None = None):
+def sweep_masked_2axis(g: Grid3D, dt, F, vel, axis: int, gi0, gj0):
     """One Rudman/Zalesak sweep along ``axis`` (0=x, 1=y, 2=z) in
     roll+mask form with GLOBAL index masks on BOTH the i and j axes —
     the sweep kernel of the two-axis (x,y)-decomposed solver
-    (parallel/dist3d.py py>1 engines, XLA and pencil-pallas). Local
+    (parallel/dist3d.py with py > 1). Local
     position (l, m, n) holds global indices (gi0 + l, gj0 + m, n); k (z)
     is never decomposed. Positions within 3 cells of a block edge along
     the sweep axis are junk unless that edge is the true wall;
     non-interior positions carry the input F through. Same limiter chain
-    as sweep_x_masked / sweep_inplane_masked (3dvof.py:366-541) —
-    cross-pinned against the serial sweeps in tests/test_parallel_3d.py.
-
-    nj_valid: highest LOCAL row index (inclusive) holding real data —
-    the pencil-pallas kernels run on sublane-padded planes whose pad
-    rows alias INTERIOR global j's on non-edge shards, so the global
-    m_j alone would let roll-wrap junk creep into the pad region (the
-    pad-zero invariant the slab kernels rely on). None = no pad rows."""
+    as sweep_x_masked (3dvof.py:366-541) —
+    cross-pinned against the serial sweeps in tests/test_parallel_3d.py."""
     import jax
 
     vol, dv_area, flux_scale, q_scale, final_div = _axis_scales(g, axis)
@@ -250,20 +195,10 @@ def sweep_masked_2axis(g: Grid3D, dt, F, vel, axis: int, gi0, gj0,
     k = jax.lax.broadcasted_iota(jnp.int32, shape, 2)
     m_i = (gi >= 1) & (gi <= g.nx)
     m_j = (gj >= 1) & (gj <= g.ny)
-    if nj_valid is not None:
-        jl = jax.lax.broadcasted_iota(jnp.int32, shape, 1)
-        m_j = m_j & (jl <= nj_valid)
     m_k = (k >= 1) & (k <= g.nz)
     sw = (gi, gj, k)[axis]
     n_sweep = (g.nx, g.ny, g.nz)[axis]
     o_int = {0: m_j & m_k, 1: m_i & m_k, 2: m_i & m_j}[axis]
-    if nj_valid is not None and axis == 1:
-        # the y-sweep's j bounds come from sw (global gj), which the
-        # local-row bound must ALSO cap: on a non-edge pencil the pad
-        # rows alias interior global j's, and without this the sweep
-        # writes nonzero values into the persistent F pad (the pad-zero
-        # invariant; axes 0/2 get the bound through m_j in o_int)
-        o_int = o_int & (jl <= nj_valid)
 
     def sh(x, d):
         return _sh3(x, d if axis == 0 else 0, d if axis == 1 else 0,
@@ -308,19 +243,14 @@ def fct3d_sweep_x_windowed(g: Grid3D, dt, F_ext, u_ext, gi0):
 
 
 def rudman_advect_3d(g: Grid3D, dt, F, u, v, w, phase: int):
-    """Three-way sweep rotation by istep % 3 (3dvof.py:351-363)."""
-    if phase == 0:
-        F = fct3d_sweep_x(g, dt, F, u)
-        F = fct3d_sweep_y(g, dt, F, v)
-        F = fct3d_sweep_z(g, dt, F, w)
-    elif phase == 1:
-        F = fct3d_sweep_y(g, dt, F, v)
-        F = fct3d_sweep_z(g, dt, F, w)
-        F = fct3d_sweep_x(g, dt, F, u)
-    else:
-        F = fct3d_sweep_z(g, dt, F, w)
-        F = fct3d_sweep_x(g, dt, F, u)
-        F = fct3d_sweep_y(g, dt, F, v)
+    """Three-way sweep rotation by istep % 3 (3dvof.py:351-363); each
+    sweep runs under its own `jax.named_scope` (fct_x/fct_y/fct_z)."""
+    sweeps = {0: (fct3d_sweep_x, u), 1: (fct3d_sweep_y, v),
+              2: (fct3d_sweep_z, w)}
+    for ax in ((0, 1, 2), (1, 2, 0), (2, 0, 1))[phase]:
+        fn, vel = sweeps[ax]
+        with jax.named_scope("fct_" + "xyz"[ax]):
+            F = fn(g, dt, F, vel)
     return F
 
 

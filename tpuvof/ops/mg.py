@@ -9,11 +9,10 @@ The third rung of the pressure-solver ladder (``Numerics.pressure_solver``):
   'mg'      — THIS module: V-cycles over a rediscretized grid hierarchy.
               Same contract as 'rbsor' (solve to max|Ap-rhs| <= sor_tol on
               the nullspace-projected system), but the iteration count is
-              O(1) in grid size instead of O(n). Measured on the v5e
-              (BASELINE.md "Upgraded pressure solvers on the chip"): mg
-              reaches rel-1e-3 at 4.8 ms/solve at 1024^2 where rbsor at
-              the default omega takes 585 ms and still stalls at
-              2.3e-2*r0; 'auto' resolves to mg for serial runs.
+              O(1) in grid size instead of O(n): at 1024^2 mg reaches
+              rel-1e-3 in O(10) V-cycles where rbsor at the default omega
+              runs to its cap and still stalls at 2.3e-2*r0; 'auto'
+              resolves to mg for serial runs.
 
 Dimension-generic (one implementation serves the 2-D and 3-D drivers):
 every level operates on *interior-shaped* arrays, and the per-level
@@ -54,7 +53,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-__all__ = ["mg_solve", "mg_solve_implicit", "mg_levels"]
+__all__ = ["mg_solve", "mg_solve_counted", "mg_solve_implicit",
+           "mg_solve_implicit_counted", "mg_levels"]
 
 
 def mg_levels(shape) -> list[tuple[int, ...]]:
@@ -210,7 +210,15 @@ def _make_vcycle(shapes, levels, dtype, nu: int, coarse_iters: int):
 
 def mg_solve(p, rhs, inv2, tol, max_cycles, nu: int | None = None,
              coarse_iters: int = 50, tol_rel: float = 0.0):
-    """Solve the interior pressure system by residual-driven V-cycles.
+    """`mg_solve_counted` without the V-cycle count."""
+    return mg_solve_counted(p, rhs, inv2, tol, max_cycles, nu,
+                            coarse_iters, tol_rel)[0]
+
+
+def mg_solve_counted(p, rhs, inv2, tol, max_cycles, nu: int | None = None,
+                     coarse_iters: int = 50, tol_rel: float = 0.0):
+    """Solve the interior pressure system by residual-driven V-cycles;
+    returns (p, number of V-cycles taken).
 
     p     — full ghosted array (ghosts untouched, as in the reference);
     rhs   — interior-shaped right-hand side;
@@ -222,14 +230,13 @@ def mg_solve(p, rhs, inv2, tol, max_cycles, nu: int | None = None,
               bounded-cost production mode: a warm-started per-step
               solve terminates after O(1) V-cycles instead of running
               to the f32 floor + stall exit every step.
-    nu    — pre/post smoothing sweeps per level; None = measured policy:
-            V(1,1) in the relative mode, V(2,2) otherwise. On the v5e
-            (scripts/tpu_mg_nu_ab.py, warm-started rel=1e-2 production
-            steps) V(1,1) is 27%/41% faster end-to-end at 512²/200³ than
-            V(2,2) — the extra cycles cost less than the extra sweeps —
-            while V(3,3) buys nothing; the absolute/floor regime keeps
-            V(2,2), whose contraction the existing measurements and the
-            ≥10×-per-cycle test pin.
+    nu    — pre/post smoothing sweeps per level; None = V(1,1) in the
+            relative mode, V(2,2) otherwise: in warm-started rel=1e-2
+            production steps the extra cycles of V(1,1) cost less than
+            the extra sweeps of V(2,2), while V(3,3) buys nothing; the
+            absolute/floor regime keeps V(2,2), whose contraction the
+            ≥10×-per-cycle test pins. On the H100 this choice is not
+            measured yet.
 
     Raises ValueError if the grid cannot be coarsened at all (every axis
     odd or < 8) — use pressure_solver='rbsor' there.
@@ -263,8 +270,8 @@ def mg_solve(p, rhs, inv2, tol, max_cycles, nu: int | None = None,
     interior = (slice(1, -1),) * nd
 
     # stall exit: at f32 the achievable residual floor can sit above tol
-    # (measured on the v5e: 512^2 developed-flow solves stall near rel
-    # 6e-4 of r0); STALL_CYCLES cycles with no new best residual = done.
+    # (512^2 developed-flow solves can stall near rel 6e-4 of r0);
+    # STALL_CYCLES cycles with no new best residual = done.
     # Each V-cycle contracts the residual ~10-50x while converging, so
     # the exit cannot fire during genuine convergence.
     STALL_CYCLES = 4
@@ -294,8 +301,8 @@ def mg_solve(p, rhs, inv2, tol, max_cycles, nu: int | None = None,
     # and NaN->int32 is implementation-defined, which could defeat the
     # max_cycles cap; (r0 != r0) is a plain bool for every r0.
     i0 = (r0 != r0).astype(jnp.int32) * 0
-    p_int, *_ = jax.lax.while_loop(cond, body, (p0, i0, r0, r0, i0))
-    return p.at[interior].set(p_int)
+    p_int, it, *_ = jax.lax.while_loop(cond, body, (p0, i0, r0, r0, i0))
+    return p.at[interior].set(p_int), it
 
 
 # ----------------------------------------------------------------------
@@ -317,8 +324,8 @@ from functools import partial as _partial
 
 @_partial(jax.custom_vjp, nondiff_argnums=(0, 1, 2, 3, 4, 5))
 def _mg_implicit(inv2, tol, max_cycles, nu, coarse_iters, tol_rel, p, rhs):
-    return mg_solve(p, rhs, inv2, tol, max_cycles, nu=nu,
-                    coarse_iters=coarse_iters, tol_rel=tol_rel)
+    return mg_solve_counted(p, rhs, inv2, tol, max_cycles, nu=nu,
+                            coarse_iters=coarse_iters, tol_rel=tol_rel)
 
 
 def _mg_implicit_fwd(inv2, tol, max_cycles, nu, coarse_iters, tol_rel,
@@ -329,6 +336,7 @@ def _mg_implicit_fwd(inv2, tol, max_cycles, nu, coarse_iters, tol_rel,
 
 def _mg_implicit_bwd(inv2, tol, max_cycles, nu, coarse_iters, tol_rel,
                      _res, g_out):
+    g_out = g_out[0]  # the V-cycle count carries no cotangent
     interior = (slice(1, -1),) * g_out.ndim
     gbar = g_out[interior]
     # the solve's output is defined up to a constant the downstream
@@ -347,11 +355,19 @@ _mg_implicit.defvjp(_mg_implicit_fwd, _mg_implicit_bwd)
 
 def mg_solve_implicit(p, rhs, inv2, tol, max_cycles, nu: int | None = None,
                       coarse_iters: int = 50, tol_rel: float = 0.0):
-    """`mg_solve` with the implicit-function adjoint: differentiable
+    """`mg_solve_implicit_counted` without the V-cycle count."""
+    return mg_solve_implicit_counted(p, rhs, inv2, tol, max_cycles, nu,
+                                     coarse_iters, tol_rel)[0]
+
+
+def mg_solve_implicit_counted(p, rhs, inv2, tol, max_cycles,
+                              nu: int | None = None, coarse_iters: int = 50,
+                              tol_rel: float = 0.0):
+    """`mg_solve_counted` with the implicit-function adjoint: differentiable
     under `jax.grad` (the production 'mg' + pressure_adjoint=
     'selfadjoint' path; ops.poisson.solve_pressure routes here). The
-    primal computation is mg_solve itself — identical programs, identical
-    values."""
+    primal computation is mg_solve_counted itself — identical programs,
+    identical values."""
     return _mg_implicit(tuple(float(c) for c in inv2), float(tol),
                         int(max_cycles), nu, int(coarse_iters),
                         float(tol_rel), p, rhs)

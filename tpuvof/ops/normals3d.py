@@ -16,9 +16,8 @@ ghosts, and the 1e-10 degeneracy guard keeps raw components (NaN-safe
 `where`, so grad never sees 0/0).
 
 The corner-gradient form is kept literal (not algebraically collapsed to
-central differences of a smoothed F): the 2-D roofline work measured that
-FP reassociation flips cells across the 1e-10 guard and perturbs the
-interface (BASELINE.md round-3 negative result) — and the extrusion
+central differences of a smoothed F): FP reassociation flips cells across
+the 1e-10 guard and perturbs the interface — and the extrusion
 parity test (tests/test_csf3d.py) pins this form against the 2-D op.
 """
 from __future__ import annotations
@@ -34,11 +33,8 @@ __all__ = ["young_msum_3d", "normalize_normals_3d", "young_normals_3d",
 
 def young_msum_3d(f, dx, dy, dz):
     """Raw (unnormalized) Youngs normal sums (mxs, mys, mzs) from an
-    F-window accessor ``f(di, dj, dk)``. Shared expression core: the XLA
-    op calls it with a win3 accessor, the slab predict kernel
-    (pallas_kernels/step3d.py) with a full-shape roll accessor — the
-    accumulation order is identical by construction, so the two paths
-    agree bitwise given the same inputs."""
+    F-window accessor ``f(di, dj, dk)`` (the XLA op passes a win3
+    accessor), so the accumulation order is fixed in one place."""
 
     def corner_grad(axis, sx, sy, sz):
         """F-gradient along `axis` at the cell corner selected by the sign

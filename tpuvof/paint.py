@@ -46,7 +46,9 @@ def paint_interactively(g: Grid2D, stamp: int = 2, title: str = "Paint your init
 
     Requires an interactive matplotlib backend; raises RuntimeError headless.
     """
-    import matplotlib
+    from .io_utils import optional_import
+
+    matplotlib = optional_import("matplotlib", "--paint")
     import matplotlib.pyplot as plt
 
     noninteractive = {b.lower() for b in matplotlib.rcsetup.non_interactive_bk}

@@ -5,7 +5,8 @@ communication backend: absent"): the grid interior is tiled over a
 (px, py) device mesh; each shard carries its interior block padded with the
 same one-ghost-cell ring the serial ops already use. Physical-wall ghosts
 are produced by the masked BC formulas (only shards owning a wall apply
-them); interior-boundary ghosts ride ICI via `lax.ppermute` halo exchanges
+them); interior-boundary ghosts move between devices by `lax.ppermute`
+halo exchanges
 placed exactly where the serial pipeline refreshes or first reads ghost
 data, so the distributed trajectory is bit-compatible with the serial one
 (verified in tests/test_parallel.py on the virtual CPU mesh).
@@ -33,7 +34,6 @@ from ..ops.fct import fct_sweep_x, fct_sweep_y
 from ..ops.momentum import predict_velocity_interior, correct_velocity_interior
 from ..ops.normals import curvature_from_normals, young_normals
 from .halo import HaloSpec, exchange
-from .halo import _shift as _hshift
 
 __all__ = ["Decomp"]
 
@@ -59,24 +59,14 @@ class _LocalGrid:
 
 
 class Decomp:
-    """Domain decomposition of a SimConfig over a 2-D device mesh.
+    """Domain decomposition of a SimConfig over a 2-D device mesh: each
+    shard runs the XLA step on its block with per-phase halo exchanges."""
 
-    ``cfg.num.backend`` selects the per-shard engine: 'xla' composes the
-    XLA ops with per-phase halo exchanges; 'pallas'/'pallas_mono' runs the
-    whole lean step per shard as ONE windowed VMEM kernel
-    (pallas_kernels.pallas_fullstep_win) — each step ships a single wide
-    halo covering the full dependency cone (W = n_jacobi + 12) and keeps
-    the valid center, so the fused-kernel throughput of the serial mono
-    path carries over to the sharded grid with one exchange per step."""
-
-    def __init__(self, cfg: SimConfig, mesh: Mesh, tile: int | None = None,
-                 engine: str | None = None, tx: int | None = None):
+    def __init__(self, cfg: SimConfig, mesh: Mesh):
         if cfg.num.pressure_solver == "auto":
-            # distributed 'auto' -> mg where the global grid coarsens
-            # (the measured production upgrade — BASELINE.md "Bounded-cost
-            # production upgrades": mg 6-10x rbsor end-to-end; its coarse
-            # levels ride ONE all_gather instead of per-sweep exchanges,
-            # parallel/mg.py), rbsor on non-coarsenable grids
+            # distributed 'auto' -> mg where the global grid coarsens (its
+            # coarse levels ride ONE all_gather instead of per-sweep
+            # exchanges, parallel/mg.py), rbsor on non-coarsenable grids
             from dataclasses import replace
 
             from ..ops.mg import mg_levels
@@ -84,26 +74,12 @@ class Decomp:
             pick = ("mg" if len(mg_levels((cfg.grid.nx, cfg.grid.ny))) >= 2
                     else "rbsor")
             cfg = cfg.replace(num=replace(cfg.num, pressure_solver=pick))
-        self.cfg = cfg
-        self.mesh = mesh
-        # explicit per-shard tile for the TILED windowed engine (tests and
-        # tuning); None = automatic (full-block kernel when the extended
-        # block fits VMEM, strip-streamed then tiled beyond it, XLA when
-        # none applies)
-        self._tile = tile
-        # engine: None = automatic; 'full' | 'strips' | 'tiled' force a
-        # pallas shard engine (tests / tuning). `tx` restricts the strip
-        # engine's streaming height (strips_layout_2d).
-        if engine not in (None, "full", "strips", "tiled"):
-            raise ValueError(f"unknown shard engine {engine!r}")
         if cfg.num.pressure_solver not in ("jacobi", "rbsor", "mg"):
             raise ValueError(
                 f"unknown pressure_solver {cfg.num.pressure_solver!r} "
                 "(jacobi | rbsor | mg | auto)")
-        self._engine = engine
-        self._tx = tx
-        self._shard_tile_static = None
-        self._strips_lay_static = None
+        self.cfg = cfg
+        self.mesh = mesh
         axes = tuple(mesh.axis_names)
         if len(axes) != 2:
             raise ValueError("Decomp expects a 2-D mesh (axes for x and y)")
@@ -225,21 +201,14 @@ class Decomp:
         ap_inv = -1.0 / (ae + aw + an + a_s)
         return ae, aw, an, a_s, ap_inv
 
+    # reduce over both mesh axes even where one has size 1: the result is
+    # then mesh-invariant, which the while_loop carries of the residual
+    # stop need under shard_map's varying-axes check
     def _gsum(self, x):
-        s = jnp.sum(x)
-        if self.px > 1:
-            s = lax.psum(s, self.halo.axis_x)
-        if self.py > 1:
-            s = lax.psum(s, self.halo.axis_y)
-        return s
+        return lax.psum(jnp.sum(x), (self.halo.axis_x, self.halo.axis_y))
 
     def _gmax(self, x):
-        m = jnp.max(x)
-        if self.px > 1:
-            m = lax.pmax(m, self.halo.axis_x)
-        if self.py > 1:
-            m = lax.pmax(m, self.halo.axis_y)
-        return m
+        return lax.pmax(jnp.max(x), (self.halo.axis_x, self.halo.axis_y))
 
     def _solve_pressure_rbsor(self, p, rhs):
         """Distributed red-black SOR with the on-device residual stop
@@ -321,8 +290,7 @@ class Decomp:
         from .mg import MGDecomp
 
         return MGDecomp(
-            axis_names=(self.halo.axis_x if self.px > 1 else None,
-                        self.halo.axis_y if self.py > 1 else None),
+            axis_names=(self.halo.axis_x, self.halo.axis_y),
             shards=(self.px, self.py))
 
     def _solve_pressure(self, p, u_star, v_star, rho):
@@ -403,467 +371,12 @@ class Decomp:
         return F, u, v, p
 
     # ------------------------------------------------------------------
-    # the per-shard step on the windowed whole-step Pallas kernel
-    # ------------------------------------------------------------------
-    def _widen(self, a, W: int):
-        """Extend a local block with W planes of current neighbor data on
-        every side (two-stage: x rows first, then full-height y columns, so
-        corners carry diagonal-neighbor data). Edge shards get zeros beyond
-        the walls — the windowed kernel's global masks keep them inert."""
-        h = self.halo
-
-        def zeros(shape):
-            return jnp.zeros(shape, a.dtype)
-
-        if self.px > 1:
-            lo = _hshift(a[-2 - W:-2, :], h.axis_x, self.px, up=True)
-            hi = _hshift(a[2:2 + W, :], h.axis_x, self.px, up=False)
-            lo = jnp.where(h.is_left(), 0.0, lo)
-            hi = jnp.where(h.is_right(), 0.0, hi)
-        else:
-            lo = hi = zeros((W, a.shape[1]))
-        a = jnp.concatenate([lo, a, hi], axis=0)
-        if self.py > 1:
-            lo = _hshift(a[:, -2 - W:-2], h.axis_y, self.py, up=True)
-            hi = _hshift(a[:, 2:2 + W], h.axis_y, self.py, up=False)
-            lo = jnp.where(h.is_bottom(), 0.0, lo)
-            hi = jnp.where(h.is_top(), 0.0, hi)
-        else:
-            lo = hi = zeros((a.shape[0], W))
-        return jnp.concatenate([lo, a, hi], axis=1)
-
-    def _refresh_halo_2d(self, a, W: int):
-        """In-place halo refresh on a RESIDENT extended block (round-3:
-        the round-2 engine re-widened and re-sliced every step — two full
-        block copies; git history): overwrite the (W+1) outer bands per
-        side with the neighbors' owned data via ppermute + static-slice
-        .at[].set (in-place dynamic-update-slice, no concatenate). Two
-        stages, x rows FIRST then full-height y columns — every shard's
-        x-stage runs before any y-stage (SPMD lockstep), so the y-stage
-        ships x-halo rows that were just refreshed and corners end up
-        with diagonal-neighbor data, exactly like _widen's staging. Edge
-        shards keep their beyond-wall junk (inert under the windowed
-        kernel's global-index masks)."""
-        h = self.halo
-        nxl, nyl = self.nxl, self.nyl
-        if self.px > 1:
-            lo = _hshift(a[nxl: nxl + W + 1, :], h.axis_x, self.px, up=True)
-            hi = _hshift(a[W + 1: 2 * W + 2, :], h.axis_x, self.px,
-                         up=False)
-            a = a.at[: W + 1, :].set(
-                jnp.where(h.is_left(), a[: W + 1, :], lo))
-            a = a.at[W + nxl + 1:, :].set(
-                jnp.where(h.is_right(), a[W + nxl + 1:, :], hi))
-        if self.py > 1:
-            lo = _hshift(a[:, nyl: nyl + W + 1], h.axis_y, self.py, up=True)
-            hi = _hshift(a[:, W + 1: 2 * W + 2], h.axis_y, self.py,
-                         up=False)
-            a = a.at[:, : W + 1].set(
-                jnp.where(h.is_bottom(), a[:, : W + 1], lo))
-            a = a.at[:, W + nyl + 1:].set(
-                jnp.where(h.is_top(), a[:, W + nyl + 1:], hi))
-        return a
-
-    def _local_step_pallas(self, F, u, v, p, even_step: bool):
-        """One step on the RESIDENT extended blocks: refresh the halo
-        bands in place, then the whole lean step as one windowed VMEM
-        kernel. The kernel writes the global-wall BC values itself
-        (_bc_values with global indices), so no XLA-level BC/exchange
-        follows — the next refresh revalidates the (eroded) halo from the
-        neighbors' owned cells."""
-        from ..pallas_kernels import pallas_available
-        from ..pallas_kernels.step_kernels import (
-            pallas_fullstep_win, step_halo_width)
-
-        W = step_halo_width(self.cfg)
-        h = self.halo
-        oi = h.xi() * self.nxl - W
-        oj = h.yi() * self.nyl - W
-        ext = [self._refresh_halo_2d(x, W) for x in (F, u, v, p)]
-        return pallas_fullstep_win(
-            self.cfg, *ext, oi, oj, even_step,
-            interpret=not pallas_available())
-
-    # ------------------------------------------------------------------
-    # the per-shard HYBRID step: Pallas phase kernels around the
-    # DISTRIBUTED residual-driven pressure solve (VERDICT r4 #1)
-    # ------------------------------------------------------------------
-    def _local_step_hybrid(self, F, u, v, p, even_step: bool):
-        """One step with the upgraded pressure solvers (rbsor /
-        parallel-mg) hosted as XLA BETWEEN per-shard Pallas phase
-        kernels — the sharded counterpart of the serial hybrid
-        (solver._step_pallas), so production-upgrade runs keep kernel
-        speed for predict + both FCT sweeps instead of dropping the
-        whole step to XLA. Each phase ships a PHASE_HALO-plane widened
-        block (the phase's exact L-inf cone, _widen's two-stage corner
-        staging) and keeps the [W:-W] center, whose ghost ring carries
-        exactly the values a post-phase exchange would have delivered
-        (in-cone compute = the neighbor's identical expression on the
-        same operands). The solve itself is the documented trade: its
-        while_loop cannot live in a VMEM-resident kernel."""
-        from ..pallas_kernels import pallas_available
-        from ..pallas_kernels.step_kernels import (
-            PHASE_HALO as W, pallas_fct_sweep_win, pallas_predict_win)
-
-        cfg = self.cfg
-        gl, nm = self.gl, cfg.num
-        h = self.halo
-        interp = not pallas_available()
-        oi = h.xi() * self.nxl - W
-        oj = h.yi() * self.nyl - W
-        ctr = slice(W, -W)
-
-        us_e, vs_e = pallas_predict_win(
-            cfg, *(self._widen(x, W) for x in (u, v, F)), oi, oj,
-            interpret=interp)
-        u_star = us_e[ctr, ctr]
-        v_star = vs_e[ctr, ctr]
-
-        rho, _ = mix_properties(cfg.fluid, F)
-        u, v, F, p, rho = self._bc(u, v, F, p, rho)
-        p = self._solve_pressure(p, u_star, v_star, rho)
-
-        uc, vc = correct_velocity_interior(gl, nm, u_star, v_star, p, rho)
-        shape_int = (self.nxl, self.nyl)
-        uc = jnp.where(h.is_left() & _col_mask(shape_int, 0, 0), 0.0, uc)
-        vc = jnp.where(h.is_bottom() & _col_mask(shape_int, 1, 0), 0.0, vc)
-        u = u.at[1:-1, 1:-1].set(uc)
-        v = v.at[1:-1, 1:-1].set(vc)
-        u, v, F, p, rho = self._bc(u, v, F, p, rho)
-
-        def sweep(F, vel, axis):
-            return pallas_fct_sweep_win(
-                cfg, self._widen(F, W), self._widen(vel, W), axis,
-                oi, oj, interpret=interp)[ctr, ctr]
-
-        if even_step:
-            F = sweep(F, v, 1)
-            F = sweep(F, u, 0)
-        else:
-            F = sweep(F, u, 0)
-            F = sweep(F, v, 1)
-        F = clamp01(F)
-        u, v, F, p, rho = self._bc(u, v, F, p, rho)
-        return F, u, v, p
-
-    def hybrid_shard_supported(self) -> bool:
-        """Whether the hybrid phase kernels apply: each PHASE_HALO widen
-        must come from ONE neighbor's owned planes (local blocks >= W+1
-        per sharded axis) and the widened block must fit the VMEM
-        envelope at the predict kernel's ~28-field footprint."""
-        from ..pallas_kernels.step_kernels import PHASE_HALO, fits_vmem_2d
-
-        W = PHASE_HALO
-        if ((self.px > 1 and self.nxl < W + 1)
-                or (self.py > 1 and self.nyl < W + 1)):
-            return False
-        return fits_vmem_2d(self.nxl + 2 * W, self.nyl + 2 * W, fields=28)
-
-    def _shard_halo_ok(self) -> bool:
-        """Each (W+1)-band halo refresh must come from ONE neighbor's owned
-        cells: local blocks >= W+1 per sharded axis."""
-        from ..pallas_kernels.step_kernels import step_halo_width
-
-        W = step_halo_width(self.cfg)
-        return not ((self.px > 1 and self.nxl < W + 1)
-                    or (self.py > 1 and self.nyl < W + 1))
-
-    def pallas_shard_supported(self) -> bool:
-        """Whether the full-block windowed kernel applies: the halo must
-        come from the IMMEDIATE neighbor (local blocks >= W per axis) and
-        the extended block must fit the VMEM envelope (~24 live
-        field-sized temporaries <= 124 MB)."""
-        from ..pallas_kernels.step_kernels import (
-            WINDOWED_FIELDS, fits_vmem_2d, step_halo_width)
-
-        W = step_halo_width(self.cfg)
-        if not self._shard_halo_ok():
-            return False
-        # the extended (wide-halo) block plays the role of the whole field:
-        # pass its INTERIOR extents — fits_vmem_2d adds the ghost ring
-        # itself (passing nxl+2W+2 double-counted the ring and pushed
-        # borderline shard geometries onto the slow XLA fallback, ADVICE
-        # r2) — with the WINDOWED kernel's measured ~27-field footprint
-        # (a 1070^2 window OOMed the 128 MB cap under the 24-field model)
-        return fits_vmem_2d(self.nxl + 2 * W, self.nyl + 2 * W,
-                            fields=WINDOWED_FIELDS)
-
-    def shard_tile(self) -> tuple[int, int] | None:
-        """Tile (Tx, Ty) for the TILED windowed shard engine, or None when
-        it does not apply. An explicit ``Decomp(..., tile=T)`` (int =
-        square, tuple = rectangular) forces the tiled engine (tests /
-        tuning); automatically it is used only where the full-block
-        kernel cannot be (extended block beyond the VMEM envelope) but a
-        VMEM-sized tile of the local block exists — so huge per-chip
-        shards keep mono-class throughput instead of dropping to the XLA
-        per-shard step. Auto-picked layouts prefer full-width strips
-        (pick_tile_2d)."""
-        from ..pallas_kernels.step_kernels import pick_tile_2d
-        from ..pallas_kernels.step_kernels import step_halo_width
-
-        if not self._shard_halo_ok():
-            return None
-        W = step_halo_width(self.cfg)
-        if self._tile is not None:
-            T = self._tile
-            if isinstance(T, int):
-                T = (T, T)
-            if self.nxl % T[0] or self.nyl % T[1]:
-                raise ValueError(
-                    f"tile={self._tile} does not divide local blocks "
-                    f"{self.nxl}x{self.nyl}")
-            return T
-        if (self._engine != "tiled"
-                and self.cfg.num.backend != "pallas_tiled"
-                and self.pallas_shard_supported()):
-            return None  # full-block kernel is strictly better
-        return pick_tile_2d(self.nxl, self.nyl, W)
-
-    def _local_step_pallas_tiled(self, F, u, v, p, even_step: bool):
-        """One step on the RESIDENT extended blocks, streamed tile-by-tile
-        through the windowed kernel (the serial tiled engine's loop,
-        solver._step_pallas_tiled, with the shard origin folded into each
-        tile's global offset): refresh the halo bands in place, then for
-        every T x T tile of the local block slice its W-extended window
-        from the ENTRY state, run pallas_fullstep_win, and keep the
-        (T+2)-wide fully-valid center. The union of centers covers
-        exactly the local block incl. its ghost ring [W, W+nloc+2); the
-        outer halo bands keep their entry values, which is all the next
-        refresh reads (it ships owned cells only)."""
-        from ..pallas_kernels import pallas_available
-        from ..pallas_kernels.step_kernels import (
-            pallas_fullstep_win, step_halo_width)
-
-        W = step_halo_width(self.cfg)
-        Tx, Ty = self._shard_tile_static
-        h = self.halo
-        oi0 = h.xi() * self.nxl - W
-        oj0 = h.yi() * self.nyl - W
-        ntx, nty = self.nxl // Tx, self.nyl // Ty
-        Ex, Ey = Tx + 2 * W + 2, Ty + 2 * W + 2
-        interpret = not pallas_available()
-        ext = tuple(self._refresh_halo_2d(x, W) for x in (F, u, v, p))
-
-        def tile_body(t, carry):
-            ti = t // nty
-            tj = t - ti * nty
-            r0 = ti * Tx
-            c0 = tj * Ty
-            # slice from the immutable ENTRY state (ext), never the carry:
-            # overlapping windows must all read pre-step values
-            blocks = [jax.lax.dynamic_slice(a, (r0, c0), (Ex, Ey))
-                      for a in ext]
-            out = pallas_fullstep_win(
-                self.cfg, *blocks, oi0 + r0, oj0 + c0, even_step,
-                interpret=interpret)
-            kept = [o[W:W + Tx + 2, W:W + Ty + 2] for o in out]
-            return tuple(
-                jax.lax.dynamic_update_slice(a, k, (r0 + W, c0 + W))
-                for a, k in zip(carry, kept))
-
-        return jax.lax.fori_loop(0, ntx * nty, tile_body, ext)
-
-    # ------------------------------------------------------------------
-    # the per-shard step on the strip-streaming kernel
-    # ------------------------------------------------------------------
-    def shard_strips_layout(self):
-        """strips_layout_2d geometry for the STRIP-STREAMING shard engine
-        on the local block (the beyond-VMEM default, preferred over the
-        tiled loop: one launch per step, window DMA overlapped behind
-        compute), or None when no strip height divides nxl and fits
-        VMEM or the halo cannot come from one neighbor."""
-        from ..pallas_kernels.step_kernels import strips_layout_2d
-
-        if not self._shard_halo_ok():
-            return None
-        return strips_layout_2d(self.cfg, tx=self._tx,
-                                extents=(self.nxl, self.nyl))
-
-    def _refresh_halo_strips(self, a, W: int, lay):
-        """_refresh_halo_2d's (W+1)-band in-place halo refresh, offset
-        onto the strip engine's (P0, P1) resident layout: extended-frame
-        row e lives at padded row e + off with off = W2 - W. The padded
-        rows/cols outside the refreshed bands ([0, off) and the tail) are
-        never valid and never enter any kept cell's dependency cone
-        (distance >= W+1 from the staged rows)."""
-        h = self.halo
-        nxl, nyl = self.nxl, self.nyl
-        off = lay[1] - W
-        if self.px > 1:
-            lo = _hshift(a[off + nxl: off + nxl + W + 1, :],
-                         h.axis_x, self.px, up=True)
-            hi = _hshift(a[off + W + 1: off + 2 * W + 2, :],
-                         h.axis_x, self.px, up=False)
-            dlo = a[off: off + W + 1, :]
-            dhi = a[off + W + nxl + 1: off + 2 * W + nxl + 2, :]
-            a = a.at[off: off + W + 1, :].set(
-                jnp.where(h.is_left(), dlo, lo))
-            a = a.at[off + W + nxl + 1: off + 2 * W + nxl + 2, :].set(
-                jnp.where(h.is_right(), dhi, hi))
-        if self.py > 1:
-            lo = _hshift(a[:, off + nyl: off + nyl + W + 1],
-                         h.axis_y, self.py, up=True)
-            hi = _hshift(a[:, off + W + 1: off + 2 * W + 2],
-                         h.axis_y, self.py, up=False)
-            dlo = a[:, off: off + W + 1]
-            dhi = a[:, off + W + nyl + 1: off + 2 * W + nyl + 2]
-            a = a.at[:, off: off + W + 1].set(
-                jnp.where(h.is_bottom(), dlo, lo))
-            a = a.at[:, off + W + nyl + 1: off + 2 * W + nyl + 2].set(
-                jnp.where(h.is_top(), dhi, hi))
-        return a
-
-    def _local_step_pallas_strips(self, F, u, v, p, even_step: bool):
-        """One step on the RESIDENT strip-layout blocks: refresh the
-        (W+1) halo bands in place, then ONE strip-streaming kernel launch
-        runs the whole lean step over the local block (the serial strips
-        engine with the shard's global origin as traced SMEM scalars) —
-        beyond-VMEM per-chip blocks keep the serial strips engine's
-        mono-class throughput instead of the tiled loop's slice-bound
-        rate. The kernel stages rows [W2, W2+nxl+8) full-lane: the local
-        block and its ghost ring get fully-valid values, the overwritten
-        band tails are re-refreshed before the next read."""
-        from ..pallas_kernels import pallas_available
-        from ..pallas_kernels.step_kernels import (
-            pallas_fullstep_strips, step_halo_width)
-
-        W = step_halo_width(self.cfg)
-        lay = self._strips_lay_static
-        h = self.halo
-        ext = [self._refresh_halo_strips(x, W, lay) for x in (F, u, v, p)]
-        return pallas_fullstep_strips(
-            self.cfg, *ext, even_step,
-            interpret=not pallas_available(), tx=lay[0],
-            extents=(self.nxl, self.nyl),
-            oi0=h.xi() * self.nxl, oj0=h.yi() * self.nyl)
-
-    # ------------------------------------------------------------------
     # public API
     # ------------------------------------------------------------------
     def make_simulate(self):
         """Jitted (state, n_steps static) -> state over blocked arrays."""
         spec = P(self.ax, self.ay)
-
-        use_pallas = self.cfg.num.backend in (
-            "pallas", "pallas_mono", "pallas_tiled", "pallas_strips")
-        # backend='pallas_tiled'/'pallas_strips' are soft preferences
-        # (like the serial engines: warn-fallback when unavailable);
-        # the engine= kwarg is the hard force (raises)
-        prefer = {"pallas_tiled": "tiled",
-                  "pallas_strips": "strips"}.get(self.cfg.num.backend)
-        use_hybrid = False
-        if use_pallas and self.cfg.num.pressure_solver != "jacobi":
-            if self._engine is not None:
-                # engine= is the documented hard force — honor the
-                # contract by raising instead of silently measuring the
-                # hybrid (phase-kernel) step under a forced-engine label
-                raise ValueError(
-                    f"engine={self._engine!r} forced but pressure_solver="
-                    f"{self.cfg.num.pressure_solver!r} runs the HYBRID "
-                    "per-shard step (Pallas phase kernels around the "
-                    "distributed solve), not a whole-step engine (those "
-                    "implement the fixed-iteration Jacobi)")
-            if self.hybrid_shard_supported():
-                # the distributed HYBRID step (VERDICT r4 #1): only the
-                # projection solve is hosted as XLA, the predict + FCT
-                # phases stay Pallas
-                use_hybrid = True
-            else:
-                import warnings
-
-                warnings.warn(
-                    f"pressure_solver={self.cfg.num.pressure_solver!r}: "
-                    "the hybrid phase kernels need local blocks >= "
-                    "PHASE_HALO+1 per sharded axis and a widened block "
-                    "inside the VMEM envelope; backend falls back to "
-                    "'xla'")
-            use_pallas = False  # the resident widened layout below is
-            # the whole-step engines' — the hybrid runs on the ghost-ring
-            # blocks like the XLA step
-        use_tiled = False
-        use_strips = False
-        if use_pallas and self._engine == "strips":
-            lay = self.shard_strips_layout()
-            if lay is None:
-                raise ValueError(
-                    f"engine='strips' forced but no strip layout exists "
-                    f"for local blocks {self.nxl}x{self.nyl} "
-                    f"(tx={self._tx})")
-            use_strips = True
-            self._strips_lay_static = lay
-        elif use_pallas and self._engine == "full":
-            if not self.pallas_shard_supported():
-                raise ValueError(
-                    "engine='full' forced but the extended block exceeds "
-                    f"the VMEM envelope for local blocks {self.nxl}x"
-                    f"{self.nyl}")
-        elif use_pallas and (self._tile is not None
-                             or self._engine == "tiled"
-                             or prefer is not None
-                             or not self.pallas_shard_supported()):
-            # beyond the full-block envelope (or a backend-level engine
-            # preference): prefer the strip-streaming engine (one
-            # launch/step, DMA overlap), then the tiled loop; an explicit
-            # tile=/engine='tiled'/backend='pallas_tiled' request pins
-            # the tiled loop
-            want_tiled = (self._tile is not None or self._engine == "tiled"
-                          or prefer == "tiled")
-            lay = None if want_tiled else self.shard_strips_layout()
-            if lay is not None:
-                use_strips = True
-                self._strips_lay_static = lay
-            elif (tile := self.shard_tile()) is not None:
-                # stream the windowed kernel over VMEM-sized tiles
-                use_tiled = True
-                self._shard_tile_static = tile
-            elif self._engine == "tiled":
-                raise ValueError(
-                    "engine='tiled' forced but no tile divides local "
-                    f"blocks {self.nxl}x{self.nyl} within the VMEM "
-                    "envelope")
-            elif self.pallas_shard_supported():
-                # a backend-level streaming-engine PREFERENCE
-                # (pallas_strips/pallas_tiled) that no layout satisfies,
-                # but the full-block windowed kernel is admissible: keep
-                # the fast engine class instead of dropping to the ~3x
-                # slower XLA step (the old path also misdiagnosed this
-                # as a VMEM overflow)
-                import warnings
-
-                warnings.warn(
-                    f"backend={self.cfg.num.backend!r}: no strip height "
-                    f"or tile divides local blocks {self.nxl}x{self.nyl};"
-                    " using the full-block windowed kernel instead")
-            else:
-                import warnings
-
-                from ..pallas_kernels.step_kernels import step_halo_width
-
-                W = step_halo_width(self.cfg)
-                if (self.px > 1 and self.nxl < W) or \
-                        (self.py > 1 and self.nyl < W):
-                    why = (f"local blocks {self.nxl}x{self.nyl} are thinner "
-                           f"than the W={W} dependency halo (each halo must "
-                           "come from ONE neighbor)")
-                else:
-                    why = (f"the W={W}-extended block exceeds the VMEM "
-                           f"envelope for local blocks {self.nxl}x"
-                           f"{self.nyl}, and no strip height or tile "
-                           "divides them for the streaming engines")
-                warnings.warn(
-                    f"per-shard windowed kernel unavailable: {why}; using "
-                    "the XLA per-shard step")
-                use_pallas = False
-        if use_hybrid:
-            local = self._local_step_hybrid
-        elif not use_pallas:
-            local = self._local_step
-        elif use_strips:
-            local = self._local_step_pallas_strips
-        elif use_tiled:
-            local = self._local_step_pallas_tiled
-        else:
-            local = self._local_step_pallas
+        local = self._local_step
 
         @partial(jax.jit, static_argnums=(1, 2))
         def run(state: State, n_steps: int, istep0: int = 0) -> State:
@@ -880,24 +393,6 @@ class Decomp:
                 # inputs while the shards read the raw ghosts)
                 rho0, _ = mix_properties(self.cfg.fluid, F)
                 u, v, F, p, _ = self._bc(u, v, F, p, rho0)
-                if use_strips:
-                    # pad to the strip engine's resident layout ONCE,
-                    # outside the scan; slice back once after it (the
-                    # halo refresh inside each step fills the margins)
-                    from ..pallas_kernels.step_kernels import pad_to_strips
-
-                    lay = self._strips_lay_static
-                    W2 = lay[1]
-                    F, u, v, p = (pad_to_strips(lay, x)
-                                  for x in (F, u, v, p))
-                elif use_pallas:
-                    # widen to the resident extended layout ONCE, outside
-                    # the scan; slice back once after it
-                    from ..pallas_kernels.step_kernels import \
-                        step_halo_width
-
-                    W = step_halo_width(self.cfg)
-                    F, u, v, p = (self._widen(x, W) for x in (F, u, v, p))
 
                 def pair(carry, _):
                     F, u, v, p = carry
@@ -909,12 +404,6 @@ class Decomp:
                 (F, u, v, p), _ = lax.scan(pair, (F, u, v, p), None, length=n_pairs)
                 if rem:
                     F, u, v, p = local(F, u, v, p, even_step=even1)
-                if use_strips:
-                    F, u, v, p = (
-                        x[W2:W2 + self.nxl + 2, W2:W2 + self.nyl + 2]
-                        for x in (F, u, v, p))
-                elif use_pallas:
-                    F, u, v, p = (x[W:-W, W:-W] for x in (F, u, v, p))
                 return F, u, v, p
 
             F, u, v, p = jax.shard_map(
@@ -922,8 +411,6 @@ class Decomp:
                 mesh=self.mesh,
                 in_specs=(spec, spec, spec, spec),
                 out_specs=(spec, spec, spec, spec),
-                # pallas_call out_shapes carry no vma annotation (jax 0.9)
-                check_vma=False,
             )(state.F, state.u, state.v, state.p)
             return State(F=F, u=u, v=v, p=p)
 

@@ -1,19 +1,17 @@
 """Distributed 3-D solver: `shard_map` x-axis (or x,y-pencil) decomposition.
 
-The 3-D counterpart of parallel/dist.py (VERDICT r1 #7). The volume is
-sliced along axis 0 (x) — the axis the Pallas slab kernels already
-stream along, so lanes (z) and sublanes (y) stay intact per shard and every
-y/z FCT sweep is communication-free — or, for the XLA engine on a 2-axis
-mesh, into (x, y) pencils (z is never decomposed: it is the lane axis,
-and cutting it would shard every row the hardware vectorizes over). Each
-shard holds its interior block padded with the usual one-ghost-plane
-ring; interior-boundary ghosts ride ICI via `lax.ppermute`, physical
-walls use masked BC formulas on edge shards.
+The 3-D counterpart of parallel/dist.py. The volume is sliced along axis 0
+(x) on a 1-axis mesh, so every y/z FCT sweep is communication-free, or into
+(x, y) pencils on a 2-axis mesh (z is never decomposed, so the z sweep
+stays local everywhere). Each shard holds its interior block padded with
+the usual one-ghost-plane ring; interior-boundary ghosts move between
+devices by `lax.ppermute`, physical walls use masked BC formulas on edge
+shards.
 
 Communication per step (all nearest-neighbor along one mesh axis):
   predict: u*, v*, w* ghosts      pressure: p per Jacobi iteration
   BCs (x3): u, v, w, F, p         FCT x-sweep: a 3-plane wide F/u halo
-  (the y/z sweeps touch only in-plane neighbors: zero comm)
+  (the y/z sweeps touch only in-plane neighbors: zero comm on x slabs)
 
 The x-sweep uses the wide-halo trick instead of per-pass intermediate
 syncs: ship 3 planes of current neighbor data, run the whole 4-pass sweep
@@ -38,8 +36,6 @@ from ..ops import clamp01, mix_properties
 from ..ops.fct3d import (fct3d_sweep_x_windowed, fct3d_sweep_y,
                          fct3d_sweep_z, sweep_masked_2axis)
 from ..ops.momentum3d import predict_velocity_3d, update_velocity_3d
-
-from ..solver3d import _SWEEP_ORDER as _SWEEP_ORDER3
 
 __all__ = ["Decomp3D"]
 
@@ -66,126 +62,16 @@ def _shift_x(sl, axis_name: str, n: int, up: bool):
     return lax.ppermute(sl, axis_name, perm)
 
 
-def _pad_planes(nyE: int, nz: int) -> tuple[int, int]:
-    """Sublane/lane pad of a (nyE+2, nz+2) local plane (cf.
-    solver3d._pad_jk for the global-plane case)."""
-    return (-(nyE + 2)) % 8, (-(nz + 2)) % 128
-
-
-def pallas_admission_3d(g: Grid3D, px: int, py: int, n_jacobi: int = 10,
-                        halo_width: int | None = None,
-                        pencil: bool | None = None,
-                        csf: bool = False) -> dict:
-    """Pure admission + geometry of the 3-D pallas engines for a px x py
-    decomposition — the single source Decomp3D.__init__ and the mesh
-    planner (parallel/plan.py) consult. Requires nx % px == ny % py == 0
-    (callers check divisibility first). Returns a dict:
-
-      ok       — whether backend='pallas' is admitted at this shape
-      pencil   — which engine the shape implies (py > 1, or forced)
-      W, nloc  — x cone + extended interior plane count (chunk-rounded)
-      Wy, nyE  — y cone + extended interior row count (0 / nyl if slab)
-      B        — admitted Jacobi chunk thickness (None if not ok)
-      plane    — padded local plane dims the chunked Jacobi would run
-      why      — human-readable reason when not ok
-    """
-    from ..pallas_kernels.jacobi3d import _pick_chunk as _jpick
-    from ..pallas_kernels.step3d import _pick_chunk as _spick
-
-    nxl, nyl = g.nx // px, g.ny // py
-    use_pencil = (py > 1) if pencil is None else bool(pencil)
-    # csf widens the predictor's F dependency cone from +-1 to +-3 planes
-    # (kappa at i±1 needs normals at i±2 needs F at i±3), so every
-    # downstream erosion shifts by 2: the minimal cone grows from
-    # n_jacobi+4 to n_jacobi+6 (same argument in y for the pencil block)
-    base = n_jacobi + (6 if csf else 4)
-    W = halo_width if halo_width is not None else base
-    # nxl + 2W must be a slab-chunk multiple (B in {8,4,2} with >= 3
-    # chunks; B=8 preferred — fewer, larger DMAs won the A/B at 200^3,
-    # BASELINE.md). 2W only shifts the residue by even amounts, so odd
-    # nxl can never satisfy it (checked first: the rounding loop would
-    # not terminate).
-    ok = nxl % 2 == 0
-    if ok:
-        def round_W(W, mod):
-            while (nxl + 2 * W) % mod or _spick(nxl + 2 * W) is None:
-                W += 1
-            return W
-
-        W8 = round_W(W, 8)
-        W = W8 if W8 + 1 <= nxl else round_W(W, 4)
-    nloc = nxl + 2 * W
-    # each (W+1)-plane halo must come from ONE neighbor's owned planes
-    ok = ok and W + 1 <= nxl
-    # pencil: minimal y cone (the y stencils mirror the x ones: rhs
-    # invalid at the outermost row, n_jacobi erosions, p at j-1, 3-row
-    # FCT y-sweep), no chunk rounding (chunks are x-only; planes are
-    # sublane-padded regardless)
-    Wy = base if use_pencil else 0
-    nyE = nyl + 2 * Wy
-    if use_pencil:
-        ok = ok and Wy + 1 <= nyl
-    pj, pk = _pad_planes(nyE, g.nz)
-    plane = (nyE + 2 + pj, g.nz + 2 + pk)
-    B = None
-    if ok:
-        B = _jpick(nloc, g, nloc, plane=plane if use_pencil else None)
-        ok = B is not None
-    why = ""
-    if not ok:
-        why = (f"needs even nx/px > W={W} (nx/px={nxl})"
-               + (f", ny/py > Wy={Wy} (ny/py={nyl})" if use_pencil else "")
-               + " and the extended pressure volume VMEM-resident")
-    return dict(ok=ok, pencil=use_pencil, W=W, nloc=nloc, Wy=Wy, nyE=nyE,
-                B=B, plane=plane, why=why)
-
-
 class Decomp3D:
     """Domain decomposition of a 3-D grid: x slabs over a 1-axis mesh, or
-    (x, y) pencils over a 2-axis mesh. Both have an XLA engine (the
-    pencil sweeps use ops/fct3d.sweep_masked_2axis with global-index
-    masks on both decomposed axes) and a resident wide-halo pallas
-    engine: on a 2-axis mesh the slab kernels run in PENCIL mode — every
-    j mask goes global through a second traced offset (gj_base) exactly
-    like the i masks did for slabs, the resident block is W-extended in
-    x AND Wy-extended in y (Wy = n_jacobi + 4, the same minimal cone —
-    no chunk rounding, chunks are x-only), and the per-step refresh runs
-    an x stage then a y stage over the refreshed x halos so corner halos
-    arrive without diagonal communication.
-
-    backend='pallas' runs the whole per-shard step on the slab-tiled
-    kernels (pallas_kernels/step3d.py, jacobi3d.py) on a RESIDENT
-    wide-halo block (round-3 redesign; the round-2 engine re-widened and
-    re-sliced every step, two full state copies/step — git history):
-
-    - the scan carries the W-extended local block (nloc = nxl + 2W planes
-      + 2 block ghosts); widen once at entry, slice once at exit.
-    - each step starts with one in-place halo refresh: the (W+1) outer
-      planes per side are overwritten with the neighbor's owned planes
-      via `ppermute` + static-slice `.at[].set` (XLA updates in place —
-      no concatenate materialization). Edge shards keep their beyond-wall
-      planes, whose junk is inert under the kernels' global-index masks.
-    - W is the MINIMAL step dependency cone, n_jacobi + 4 (rhs is invalid
-      at the outermost computed plane; n_jacobi Jacobi passes erode one
-      plane/side each; correct reads p at i-1; the FCT x-sweep reads 3
-      planes), rounded up so nloc is a slab-chunk multiple — vs the
-      round-2 engine's conservative n_jacobi + 12. The validity induction:
-      post-refresh every block plane holds current global data, so final
-      F is serial-valid on [5+n_jacobi, nloc-n_jacobi-3] ⊇ the owned
-      planes iff W >= n_jacobi+4; u/v/w/p need less; the next refresh
-      re-validates the halo from the neighbors' owned planes.
-    - the serial kernels are the gi_base=0 special case of the same
-      global masks; at px=1 the refresh is a no-op and the trajectory is
-      BIT-identical to the serial pallas path (tests_tpu).
-
-    Requires even nx/px >= W+1 (each halo comes from ONE neighbor) and
-    the extended pressure volume VMEM-resident; falls back to the XLA
-    engine with a warning otherwise."""
+    (x, y) pencils over a 2-axis mesh. Each shard runs the XLA step with
+    ghost-plane exchanges; the pencil sweeps use
+    ops/fct3d.sweep_masked_2axis with global-index masks on both
+    decomposed axes."""
 
     def __init__(self, g: Grid3D, mesh: Mesh, fl: Fluid | None = None,
                  dt: float = 4e-6, n_jacobi: int = 10,
-                 backend: str = "xla", halo_width: int | None = None,
-                 pencil: bool = False, pressure_solver: str = "jacobi",
+                 pressure_solver: str = "jacobi",
                  sor_omega: float = 1.7, sor_tol: float = 1e-3,
                  sor_max_iter: int = 200, csf: bool = False,
                  sor_tol_rel: float = 0.0):
@@ -210,10 +96,9 @@ class Decomp3D:
         self.dt = dt
         self.n_jacobi = n_jacobi
         if pressure_solver == "auto":
-            # distributed 'auto' -> mg where the global grid coarsens
-            # (the measured production upgrade; its coarse levels ride ONE
-            # all_gather instead of per-sweep exchanges — parallel/mg.py),
-            # rbsor on non-coarsenable grids
+            # distributed 'auto' -> mg where the global grid coarsens (its
+            # coarse levels ride ONE all_gather instead of per-sweep
+            # exchanges — parallel/mg.py), rbsor on non-coarsenable grids
             from ..ops.mg import mg_levels
 
             pressure_solver = (
@@ -229,63 +114,10 @@ class Decomp3D:
         self.sor_max_iter = sor_max_iter
         self.sor_tol_rel = sor_tol_rel
         # 3-D surface tension (the upgrade the reference leaves disabled,
-        # 3dvof.py:304-332,607): XLA engine computes local normals +
-        # curvature with 4 extra ghost exchanges per step; pallas engine
-        # fuses them into the slab predict kernel (csf=True widens the
-        # admission cone W/Wy by 2 — see pallas_admission_3d)
+        # 3dvof.py:304-332,607): local normals + curvature with 4 extra
+        # ghost exchanges per step
         self.csf = bool(csf)
-        # residual-driven solvers + backend='pallas' run the HYBRID step
-        # (VERDICT r4 #1): the slab predict/correct/FCT kernels on a
-        # resident block whose cone is sized WITHOUT the Jacobi erosion
-        # (the hosted distributed solve re-validates p globally), with
-        # the rbsor/parallel-mg solve as XLA between the kernel phases —
-        # the sharded counterpart of solver3d._step_3d_pallas_padded's
-        # rbsor/mg branch.
-        self.hybrid = backend == "pallas" and pressure_solver != "jacobi"
-        self.backend = backend
-        # pencil mode: the slab kernels with GLOBAL j masks on a
-        # y-extended resident block (required for py > 1 with pallas;
-        # pencil=True forces it on a py == 1 two-axis mesh, where the
-        # refresh is a no-op — the bit-exactness pin of tests_tpu)
-        if pencil and self.ay is None:
-            raise ValueError("pencil=True needs a 2-axis mesh")
-        if pencil and backend != "pallas":
-            raise ValueError("pencil=True forces the pallas pencil engine"
-                             f"; backend={backend!r} cannot honor it")
-        self.pencil = backend == "pallas" and self.ay is not None \
-            and (self.py > 1 or bool(pencil))
-        self.Wy = 0
-        self.nyE = self.nyl
-        if backend == "pallas":
-            # the hybrid's cone is sized WITHOUT the Jacobi erosion: the
-            # hosted distributed solve re-validates p globally between
-            # the predict and correct kernel phases
-            adm = pallas_admission_3d(
-                g, self.px, self.py, 0 if self.hybrid else n_jacobi,
-                halo_width, pencil=self.pencil, csf=self.csf)
-            self.W, self.nloc = adm["W"], adm["nloc"]
-            self.Wy, self.nyE = adm["Wy"], adm["nyE"]
-            if not adm["ok"]:
-                import warnings
-
-                warnings.warn(f"Decomp3D backend='pallas' {adm['why']}; "
-                              "using the XLA engine. (parallel.plan_mesh_3d"
-                              " / `tpuvof --plan-mesh N --three-d` ranks "
-                              "the admissible mesh shapes)")
-                self.backend = "xla"
-                self.hybrid = False
-                self.pencil = False
-                self.Wy = 0
-                self.nyE = self.nyl
         self._run = None
-
-    def _pencil_pad(self):
-        """Sublane/lane pad of the pencil block's LOCAL planes — the one
-        formula the admission check (pallas_admission_3d) and the runtime
-        pad in make_simulate use (if they diverged, the constructor would
-        validate one plane shape and the kernels would run another,
-        surfacing only as a remote Mosaic compile failure)."""
-        return _pad_planes(self.nyE, self.g.nz)
 
     # ---- shard coordinates (traced inside shard_map) ----
     def _xi(self):
@@ -425,8 +257,8 @@ class Decomp3D:
         return rhs, self._poisson_coeffs(p.dtype)
 
     def _poisson_coeffs(self, dtype):
-        """The 7-point coefficients alone — the hybrid step reuses them
-        against the rhs the slab predict kernel already computed."""
+        """The 7-point coefficients, Neumann edges zeroed at the global
+        walls."""
         g = self.g
         shape = (self.nxl, self.nyl, g.nz)
         dxi2 = jnp.asarray(np.float64(g.dxi) ** 2, dtype)
@@ -460,9 +292,7 @@ class Decomp3D:
 
     def _solve_upgraded(self, p, rhs):
         """Dispatch the residual-driven solvers (rbsor / parallel-mg) on
-        ring-layout (p, rhs) — shared by the XLA step (which computes rhs
-        via _poisson_local) and the HYBRID step (which slices the rhs the
-        slab predict kernel already fused)."""
+        ring-layout (p, rhs)."""
         if self.pressure_solver == "rbsor":
             return self._solve_pressure_rbsor(
                 p, rhs, self._poisson_coeffs(p.dtype))
@@ -470,8 +300,7 @@ class Decomp3D:
 
         g = self.g
         spec = MGDecomp(
-            axis_names=(self.ax if self.px > 1 else None,
-                        self.ay if self.py > 1 else None, None),
+            axis_names=(self.ax, self.ay, None),
             shards=(self.px, self.py, 1))
         return mg_solve_dist(spec, p, rhs,
                              (g.dxi**2, g.dyi**2, g.dzi**2),
@@ -654,179 +483,6 @@ class Decomp3D:
         u, v, w, F, p = self._bc(u, v, w, F, p)
         return F, u, v, w, p
 
-    # ---- resident wide-halo pallas engine (backend='pallas') ----
-    def _widen_W(self, a):
-        """Entry layout conversion (ONCE per simulate call, outside the
-        scan): [lo(W), a, hi(W)] along axis 0. a's own ghost planes stay
-        in place mid-block: for interior shards they hold REAL neighbor
-        plane values, for edge shards the wall mirrors. lo/hi ship the
-        next W planes outward from the neighbors; zeros beyond the walls
-        are inert under the kernels' global-index masks. Same slice
-        algebra as the XLA engine's _widen (a[-2-w:-2] IS a[nxl-w:nxl]),
-        so this is that helper at the resident width."""
-        return self._widen(a, self.W)
-
-    def _widen_Wy(self, a):
-        """The y twin for the pencil engine: [lo(Wy), a, hi(Wy)] along
-        axis 1, on the UNPADDED local block (the sublane pad is appended
-        after) — _widen_y at the resident width."""
-        return self._widen_y(a, self.Wy)
-
-    def _refresh_halo(self, a):
-        """In-place halo refresh on a resident extended block: overwrite
-        the (W+1) outermost planes per side with the neighbor's owned
-        planes (static-slice .at[].set — XLA applies it as an in-place
-        dynamic-update-slice; no whole-block concatenate). Shard s's low
-        halo [0, W] holds global planes [s*nxl - W, s*nxl] = the LAST
-        W+1 owned planes of shard s-1, which live at its block indices
-        [nxl, nxl+W]; symmetrically for the high side. Edge shards keep
-        their beyond-wall junk (inert under the global-index masks).
-
-        Pencil engine: a second stage refreshes the (Wy+1) outermost
-        COLUMNS per side along y, over the full x extent INCLUDING the
-        just-refreshed x halos — so corner halo data lands correctly
-        without diagonal communication (cf. _exchange). Explicit end
-        indices keep the sublane pad columns untouched."""
-        if self.px > 1:
-            W, nxl = self.W, self.nxl
-            lo = _shift_x(a[nxl: nxl + W + 1], self.ax, self.px, up=True)
-            hi = _shift_x(a[W + 1: 2 * W + 2], self.ax, self.px, up=False)
-            a = a.at[: W + 1].set(
-                jnp.where(self._is_left(), a[: W + 1], lo))
-            a = a.at[W + nxl + 1:].set(
-                jnp.where(self._is_right(), a[W + nxl + 1:], hi))
-        if self.pencil and self.py > 1:
-            Wy, nyl = self.Wy, self.nyl
-            lo = _shift_x(a[:, nyl: nyl + Wy + 1], self.ay, self.py,
-                          up=True)
-            hi = _shift_x(a[:, Wy + 1: 2 * Wy + 2], self.ay, self.py,
-                          up=False)
-            a = a.at[:, : Wy + 1].set(
-                jnp.where(self._is_bottom(), a[:, : Wy + 1], lo))
-            a = a.at[:, Wy + nyl + 1: 2 * Wy + nyl + 2].set(
-                jnp.where(self._is_top(),
-                          a[:, Wy + nyl + 1: 2 * Wy + nyl + 2], hi))
-        return a
-
-    def _local_step_pallas(self, F, u, v, w, p, phase: int):
-        """One step on the RESIDENT jk-padded extended blocks: refresh the
-        halos in place, then the whole step via the serial slab kernels
-        with (nloc, gi_base) set to the shard's window. The serial step is
-        the px=1/gi_base=-W special case up to the sacrificial halo. The
-        only non-kernel work per step: the ppermute refresh (px>1) and the
-        two masked wall-mirror plane writes on F."""
-        import jax as _jax
-
-        from ..pallas_kernels.jacobi3d import pallas_jacobi_3d
-        from ..pallas_kernels.step3d import (
-            pallas_correct3d,
-            pallas_fct3d_sweep,
-            pallas_predict3d_rhs,
-        )
-
-        interpret = _jax.default_backend() == "cpu"
-        g, W, nloc, nxl = self.g, self.W, self.nloc, self.nxl
-        gi_base = self._xi() * nxl - W
-        kw = {}
-        if self.pencil:
-            kw = dict(njl=self.nyE,
-                      gj_base=self._yi() * self.nyl - self.Wy)
-
-        Fx, ux, vx, wx, pxx = (self._refresh_halo(a)
-                               for a in (F, u, v, w, p))
-        us, vs, ws, rhs = pallas_predict3d_rhs(
-            g, self.fl, self.dt, ux, vx, wx, Fx,
-            interpret=interpret, nloc=nloc, gi_base=gi_base,
-            csf=self.csf, **kw)
-        pj = pallas_jacobi_3d(
-            g, self.n_jacobi, pxx, rhs,
-            interpret=interpret, nloc=nloc, gi_base=gi_base, **kw)
-        uo, vo, wo = pallas_correct3d(
-            g, self.fl, self.dt, us, vs, ws, pj, Fx,
-            interpret=interpret, nloc=nloc, gi_base=gi_base, **kw)
-        vels = (uo, vo, wo)
-        Fo = Fx
-        for idx, axn in enumerate(_SWEEP_ORDER3[phase]):
-            Fo = pallas_fct3d_sweep(
-                g, self.dt, Fo, vels[axn], axn, interpret=interpret,
-                mirror_out=(idx == 2), nloc=nloc, gi_base=gi_base, **kw)
-        # global-wall F ghost planes sit mid-block (the in-plane sweeps
-        # processed them); restore the fresh mirror the serial mirror_out
-        # writes — the stale-mirror feed the next step's sweeps depend on
-        Fo = Fo.at[W].set(
-            jnp.where(self._is_left(), Fo[W + 1], Fo[W]))
-        Fo = Fo.at[W + nxl + 1].set(
-            jnp.where(self._is_right(), Fo[W + nxl], Fo[W + nxl + 1]))
-        return Fo, uo, vo, wo, pj
-
-    def _local_step_hybrid(self, F, u, v, w, p, phase: int):
-        """The distributed HYBRID step (VERDICT r4 #1): `_local_step_pallas`
-        with the resident Jacobi kernel swapped for the DISTRIBUTED
-        residual-driven solve (rbsor / parallel-mg) hosted as XLA between
-        the slab kernel phases — the sharded counterpart of the serial
-        hybrid (solver3d._step_3d_pallas_padded's rbsor/mg branch), so
-        production-upgrade runs keep kernel speed for predict + correct +
-        all three FCT sweeps.
-
-        Layout: the same resident extended block, with W sized WITHOUT
-        the Jacobi erosion (pallas_admission_3d at n_jacobi=0: rhs is
-        invalid at the outermost computed plane, correct erodes 1 more,
-        the in-axis FCT sweep 3 — W=4, +2 with csf). The solve runs on
-        the ring-layout views (owned planes + block ghosts) sliced from
-        the extended block; the solved p is re-embedded (pads + beyond-
-        ring planes zeroed — p persists, and the pencil pad rows must
-        stay zero) and ONE extra halo refresh re-validates its halo
-        planes from the neighbors' owned planes, so the correct kernel
-        reads globally-valid p across the whole block exactly as it read
-        the resident Jacobi's output."""
-        import jax as _jax
-
-        from ..pallas_kernels.step3d import (
-            pallas_correct3d,
-            pallas_fct3d_sweep,
-            pallas_predict3d_rhs,
-        )
-
-        interpret = _jax.default_backend() == "cpu"
-        g, W, nloc, nxl = self.g, self.W, self.nloc, self.nxl
-        Wy, nyl = self.Wy, self.nyl
-        gi_base = self._xi() * nxl - W
-        kw = {}
-        if self.pencil:
-            kw = dict(njl=self.nyE, gj_base=self._yi() * nyl - Wy)
-
-        Fx, ux, vx, wx, pxx = (self._refresh_halo(a)
-                               for a in (F, u, v, w, p))
-        us, vs, ws, rhs = pallas_predict3d_rhs(
-            g, self.fl, self.dt, ux, vx, wx, Fx,
-            interpret=interpret, nloc=nloc, gi_base=gi_base,
-            csf=self.csf, **kw)
-        # ring-layout views: owned planes + the block ghosts (block index
-        # W / W+nxl+1 hold the neighbor's owned boundary plane — exactly
-        # the exchanged ghost the XLA step's solve reads)
-        sx = slice(W, W + nxl + 2)
-        sy = slice(Wy, Wy + nyl + 2)
-        nz2 = g.nz + 2
-        p_sol = self._solve_upgraded(
-            pxx[sx, sy, :nz2],
-            rhs[W + 1: W + nxl + 1, Wy + 1: Wy + nyl + 1, 1: g.nz + 1])
-        pj = jnp.zeros_like(pxx).at[sx, sy, :nz2].set(p_sol)
-        pj = self._refresh_halo(pj)
-        uo, vo, wo = pallas_correct3d(
-            g, self.fl, self.dt, us, vs, ws, pj, Fx,
-            interpret=interpret, nloc=nloc, gi_base=gi_base, **kw)
-        vels = (uo, vo, wo)
-        Fo = Fx
-        for idx, axn in enumerate(_SWEEP_ORDER3[phase]):
-            Fo = pallas_fct3d_sweep(
-                g, self.dt, Fo, vels[axn], axn, interpret=interpret,
-                mirror_out=(idx == 2), nloc=nloc, gi_base=gi_base, **kw)
-        Fo = Fo.at[W].set(
-            jnp.where(self._is_left(), Fo[W + 1], Fo[W]))
-        Fo = Fo.at[W + nxl + 1].set(
-            jnp.where(self._is_right(), Fo[W + nxl], Fo[W + nxl + 1]))
-        return Fo, uo, vo, wo, pj
-
     # ---- host-side layout conversion ----
     def _spec(self):
         return P(self.ax) if self.ay is None else P(self.ax, self.ay)
@@ -875,7 +531,7 @@ class Decomp3D:
     # ---- public API ----
     def make_simulate(self):
         spec = self._spec()
-        use_pallas = self.backend == "pallas"
+        step = self._local_step
 
         @partial(jax.jit, static_argnums=(1, 2))
         def run(state: State3D, n_steps: int, istep0: int = 0) -> State3D:
@@ -884,32 +540,6 @@ class Decomp3D:
             ph1 = (istep0 + 1) % 3
 
             def body(F, u, v, w, p):
-                if use_pallas:
-                    # entry BC + exchange (first step's pre-sweep mirrors,
-                    # cf. solver3d.simulate_3d), then jk-pad and widen to
-                    # the resident extended layout ONCE, outside the scan
-                    u, v, w, F, p = self._bc(u, v, w, F, p)
-                    from ..solver3d import _pad_jk
-
-                    if self.pencil:
-                        # y-widen BEFORE the sublane pad (the pad must
-                        # land beyond the high halo), with LOCAL pad
-                        # amounts — the pencil planes are (nyE+2, nz+2)
-                        F, u, v, w, p = (
-                            self._widen_Wy(a) for a in (F, u, v, w, p))
-                        pj, pk = self._pencil_pad()
-                    else:
-                        pj, pk = _pad_jk(self.g)
-                    F, u, v, w, p = (
-                        jnp.pad(a, ((0, 0), (0, pj), (0, pk)))
-                        for a in (F, u, v, w, p))
-                    F, u, v, w, p = (
-                        self._widen_W(a) for a in (F, u, v, w, p))
-                    step = (self._local_step_hybrid if self.hybrid
-                            else self._local_step_pallas)
-                else:
-                    step = self._local_step
-
                 def triple(carry, _):
                     s = carry
                     for k in range(3):
@@ -921,23 +551,11 @@ class Decomp3D:
                                     length=n_triples)
                 for r in range(rem):
                     carry = step(*carry, (ph1 + r) % 3)
-                if use_pallas:
-                    # slice the resident extended block back to the narrow
-                    # local layout ONCE (center nxl planes + block ghosts)
-                    sl = slice(self.W, self.W + self.nxl + 2)
-                    sy = slice(self.Wy, self.Wy + self.nyl + 2)
-                    n2p = self.g.nz + 2
-                    F, u, v, w, p = (a[sl, sy, :n2p] for a in carry)
-                    # exit BC: u/v/w/p ghost parity of the returned state
-                    u, v, w, F, p = self._bc(u, v, w, F, p)
-                    carry = (F, u, v, w, p)
                 return carry
 
             F, u, v, w, p = jax.shard_map(
                 body, mesh=self.mesh,
                 in_specs=(spec,) * 5, out_specs=(spec,) * 5,
-                # pallas_call out_shapes carry no vma annotation (jax 0.9)
-                check_vma=False,
             )(state.F, state.u, state.v, state.w, state.p)
             return State3D(F=F, u=u, v=v, w=w, p=p)
 

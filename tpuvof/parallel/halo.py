@@ -1,11 +1,11 @@
-"""Halo exchange over a 2-D device mesh via `lax.ppermute` (ICI collectives).
+"""Halo exchange over a 2-D device mesh via `lax.ppermute` collectives.
 
 The reference has no distributed backend at all (SURVEY.md §2, §5): its
 ghost-cell `set_BC` kernel is the single-device stand-in for halo exchange.
 Here the same one-ghost-cell layout becomes the communication contract for
 `shard_map` domain decomposition: each shard holds its interior block padded
 with a ghost ring; physical-wall ghosts are filled by the (masked) BC
-formulas, interior-boundary ghosts by neighbor data shipped over ICI.
+formulas, interior-boundary ghosts by neighbor data shipped between devices.
 
 Corner (diagonal) ghosts are produced by the standard two-stage trick: the
 x-stage ships full-width rows (including y-ghost entries), then the y-stage

@@ -1,15 +1,15 @@
 """Distributed geometric multigrid for the sharded pressure solve.
 
-The scale-out form of ops/mg.py (the measured production pressure upgrade:
-BASELINE.md "Bounded-cost production upgrades" — mg at sor_tol_rel=1e-2 runs
-6-10x the absolute-default mode while rbsor barely moves). The reference has
+The scale-out form of ops/mg.py (the production pressure upgrade: mg at
+sor_tol_rel=1e-2 takes a few V-cycles per step where rbsor runs to its
+iteration cap). The reference has
 no counterpart at any scale (its 3-D solver hardcodes fixed Jacobi sweeps,
-/root/reference/3dvof.py:334-349); this module exists so `Decomp`/`Decomp3D`
+reference 3dvof.py:334-349); this module exists so `Decomp`/`Decomp3D`
 users get the same solver ladder as serial runs instead of being pinned to
 the rbsor fallback.
 
-TPU-first decomposition of a V-cycle (the scaling-book recipe: fine levels
-ride compute, coarse levels ride a collective):
+Decomposition of a V-cycle (the scaling-book recipe: fine levels ride
+compute, coarse levels ride a collective):
 
   - FINE levels run sharded: red-black smoothing with one ppermute halo
     exchange per half-sweep, block-mean restriction purely shard-local,
@@ -49,7 +49,10 @@ __all__ = ["MGDecomp", "mg_solve_dist"]
 @dataclass(frozen=True)
 class MGDecomp:
     """Static shard layout for the distributed solve: per ARRAY axis, the
-    mesh axis name (None = unsharded) and shard count (1 = unsharded)."""
+    mesh axis name and shard count (1 = unsharded). A name with one shard
+    is a size-1 mesh axis: nothing is exchanged along it, but the global
+    reductions run over it so their scalars stay mesh-invariant (the
+    while_loop carries must). None = no mesh axis."""
 
     axis_names: tuple
     shards: tuple
@@ -58,7 +61,7 @@ class MGDecomp:
         if len(self.axis_names) != len(self.shards):
             raise ValueError("axis_names and shards must align per axis")
         for name, n in zip(self.axis_names, self.shards):
-            if (n > 1) != (name is not None):
+            if n > 1 and name is None:
                 raise ValueError(
                     f"sharded axes need a mesh axis name (got {name!r} "
                     f"with {n} shards)")
@@ -102,16 +105,16 @@ def _exchange_nd(spec: MGDecomp, a):
 
 def _gsum(spec: MGDecomp, x):
     s = jnp.sum(x)
-    for name, n in zip(spec.axis_names, spec.shards):
-        if n > 1:
+    for name in spec.axis_names:
+        if name is not None:
             s = lax.psum(s, name)
     return s
 
 
 def _gmax(spec: MGDecomp, x):
     m = jnp.max(x)
-    for name, n in zip(spec.axis_names, spec.shards):
-        if n > 1:
+    for name in spec.axis_names:
+        if name is not None:
             m = lax.pmax(m, name)
     return m
 

@@ -1,28 +1,33 @@
-"""Mesh planning: rank (px, py) decompositions for a grid + chip count.
+"""Mesh planning: rank (px, py) decompositions for a grid + device count.
 
 The scaling-book recipe is "pick a mesh, annotate shardings, let XLA
-insert collectives" — this module automates the FIRST step for this
-framework's engines, using the same admission rules the engines enforce
-(dist3d.pallas_admission_3d; the 2-D shard helpers in
-pallas_kernels/step_kernels.py) plus a transparent relative-cost model:
+insert collectives" — this module automates the FIRST step for Decomp
+(2-D) and Decomp3D (3-D). Every device reaches every other at the same
+rate (GPUs joined all to all), so the mesh follows the algorithm alone and
+a shape is judged by what one shard pays:
 
-  score ~ engine_class_speed / work_factor
+  divisibility   the grid must split evenly, and every sharded axis must
+                 keep at least MIN_LOCAL cells per shard (the FCT sweep's
+                 wide halo comes from ONE neighbour);
+  HBM footprint  the shard's state fields (ghost ring included) times
+                 WORKSET, the measured ratio of a step's peak device
+                 memory to its state; a shard that exceeds the device's
+                 memory is ranked last and marked as not fitting;
+  halo surface   bytes the exchanges move per step: each sharded axis
+                 costs two ppermutes (one per direction, parallel/halo.py),
+                 each moving one ghost line (2-D) or plane (3-D) per pair
+                 of shards. A ppermute's time follows the size of what one
+                 pair moves, not how many pairs take part, so the surface
+                 is 2 lines per sharded axis — even where the axis is
+                 split in two and each shard has one neighbour on it —
+                 times the number of exchanges a Jacobi step makes.
 
-  work_factor        swept elements per chip / owned elements per chip
-                     (wide-halo cones + sublane/lane padding are the
-                     real per-chip cost; owned work is mesh-invariant
-                     at fixed chip count, so ranking needs only this)
-  engine_class_speed measured throughput class of each engine on the
-                     v5e (BASELINE.md): 2-D full-block/strips 1.0,
-                     tiled loop 0.6, XLA per-shard 0.3; 3-D slab/pencil
-                     1.0 with the measured B-chunk penalty
-                     (B=8 1.0, 4 0.93, 2 0.87, 1 0.8), XLA 0.12.
-
-Scores RANK configurations; they are not absolute CUPS predictions.
-Pure shape math — no jax.Device needed, so you can plan a 256-chip pod
-mesh from a 1-chip host (CLI: `python -m tpuvof --plan-mesh N
-[--three-d]`). The reference has no distributed execution to compare
-against (SURVEY.md section 5).
+At a fixed device count the owned work per shard is the same for every
+shape, so plans that fit are ranked by halo bytes per step, then by fewer
+sharded axes (fewer collectives per exchange), then by splitting x. At
+200^3 on four H100s x slabs timed 2.58 ms/step against 2.70 for 2x2
+pencils (PERF.md), the order this ranking gives. Pure shape math — no
+jax.Device needed (CLI: `python -m tpuvof --plan-mesh N [--three-d]`).
 """
 from __future__ import annotations
 
@@ -33,7 +38,15 @@ from ..grid import Grid3D
 
 __all__ = ["MeshPlan", "plan_mesh_2d", "plan_mesh_3d", "format_plans"]
 
-_B_SPEED = {8: 1.0, 4: 0.93, 2: 0.87, 1: 0.8}
+# Each sharded axis keeps at least this many cells per shard: the FCT
+# sweeps widen F and the velocity by 2 lines from the neighbour's owned
+# cells, plus the ghost line.
+MIN_LOCAL = 3
+# Peak device memory of a jitted run over its state bytes (f32 XLA path):
+# 1.08 GB peak for the 165 MB state of 200^3 Jacobi on an H100 (PERF.md).
+WORKSET = 6.5
+H100_BYTES = 80 * 2**30
+_F32 = 4
 
 
 @dataclass(frozen=True)
@@ -42,12 +55,11 @@ class MeshPlan:
 
     px: int
     py: int
-    engine: str          # 'pallas-full'|'pallas-strips'|'pallas-tiled'|
-    #                      'pallas-slab'|'pallas-pencil'|'xla'
-    work_factor: float   # swept/owned elements per chip (>= 1)
-    score: float         # engine_class_speed / work_factor (relative)
-    halo_mb_step: float  # ppermute payload per step, MB (all fields)
-    detail: str          # engine geometry (W, B, strip height, ...)
+    layout: str          # 'single' | 'x-slabs' | 'y-slabs' | 'blocks'/'pencils'
+    hbm_mb: float        # state per shard x WORKSET, MB
+    halo_mb_step: float  # bytes the exchanges move per step, MB
+    fits: bool           # hbm_mb within one H100's memory
+    detail: str          # local extents
 
     @property
     def mesh_shape(self) -> tuple[int, int]:
@@ -60,122 +72,85 @@ def _divisor_pairs(n: int):
             yield px, n // px
 
 
-def plan_mesh_2d(cfg: SimConfig, n_devices: int) -> list[MeshPlan]:
-    """Ranked (px, py) meshes for the 2-D solver (Decomp). Every engine
-    the shard auto-routing can pick is modeled: resident full-block
-    windowed kernel inside the VMEM envelope, strip-streaming beyond it,
-    the tiled loop as fallback, XLA per-shard last."""
-    from ..pallas_kernels.step_kernels import (
-        WINDOWED_FIELDS,
-        fits_vmem_2d,
-        pick_tile_2d,
-        step_halo_width,
-        strips_layout_2d,
-    )
+def _layout(px: int, py: int, three_d: bool) -> str:
+    if px == py == 1:
+        return "single"
+    if py == 1:
+        return "x-slabs"
+    if px == 1:
+        return "y-slabs"
+    return "pencils" if three_d else "blocks"
 
+
+def _rank(plans: list[MeshPlan]) -> list[MeshPlan]:
+    # ties go to fewer sharded axes, then to splitting x (Decomp3D's
+    # slab axis: its y/z sweeps stay local)
+    return sorted(plans, key=lambda p: (not p.fits, p.halo_mb_step,
+                                        (p.px > 1) + (p.py > 1), p.py))
+
+
+def plan_mesh_2d(cfg: SimConfig, n_devices: int) -> list[MeshPlan]:
+    """Ranked (px, py) meshes for the 2-D solver (Decomp).
+
+    Exchanges per Jacobi step (parallel/dist.py): mx, my, kappa; u*, v*;
+    p once per Jacobi sweep; 5 fields at each of the 3 BC passes; Ftd,
+    rp, rm per FCT sweep and F between the sweeps."""
     g = cfg.grid
-    W = step_halo_width(cfg)
+    n_exch = 3 + 2 + cfg.num.n_jacobi + 15 + 6 + 1
     plans = []
     for px, py in _divisor_pairs(n_devices):
         if g.nx % px or g.ny % py:
             continue
         nxl, nyl = g.nx // px, g.ny // py
-        owned = nxl * nyl
-        halo_ok = not ((px > 1 and nxl < W + 1) or (py > 1 and nyl < W + 1))
-        # ppermute payload: (W+1)-band per sharded axis side over the
-        # RESIDENT extended extent of the other axis, 4 fields
-        halo = 0.0
-        if px > 1:
-            halo += 2 * (W + 1) * (nyl + 2 * W + 2) * 4
-        if py > 1:
-            halo += 2 * (W + 1) * (nxl + 2 * W + 2) * 4
-        halo_mb = halo * 4 / 2**20
-        # all engines' swept counts in the SAME units: the (8,128)-padded
-        # block extents their Mosaic programs actually sweep, ghost ring
-        # included (mixing padded strips counts with unpadded full-block
-        # counts skewed borderline rankings)
-        def padded(rows, lanes):
-            return (-(-rows // 8) * 8) * (-(-lanes // 128) * 128)
-
-        engine, swept, speed, detail = "xla", owned, 0.3, "per-shard XLA"
-        if halo_ok:
-            if fits_vmem_2d(nxl + 2 * W, nyl + 2 * W,
-                            fields=WINDOWED_FIELDS):
-                engine = "pallas-full"
-                swept = padded(nxl + 2 * W + 2, nyl + 2 * W + 2)
-                speed = 1.0
-                detail = f"W={W} resident block"
-            elif (lay := strips_layout_2d(cfg, extents=(nxl, nyl))) \
-                    is not None:
-                Tx, W2, P0, P1, Exp, Lout, ntx = lay
-                engine = "pallas-strips"
-                swept = ntx * Exp * P1  # already (8,128)-padded
-                speed = 1.0
-                detail = f"W={W} strips Tx={Tx} x{ntx}"
-            elif (tile := pick_tile_2d(nxl, nyl, W)) is not None:
-                engine = "pallas-tiled"
-                tx, ty = tile
-                swept = (nxl // tx) * (nyl // ty) \
-                    * padded(tx + 2 * W + 2, ty + 2 * W + 2)
-                speed = 0.6
-                detail = f"W={W} tiles {tx}x{ty}"
-        wf = swept / owned
-        plans.append(MeshPlan(px, py, engine, round(wf, 3),
-                              round(speed / wf, 4), round(halo_mb, 3),
-                              detail))
-    plans.sort(key=lambda p: -p.score)
-    return plans
+        if (px > 1 and nxl < MIN_LOCAL) or (py > 1 and nyl < MIN_LOCAL):
+            continue
+        state = 4 * (nxl + 2) * (nyl + 2) * _F32
+        lines = (2 * (nyl + 2) if px > 1 else 0) \
+            + (2 * (nxl + 2) if py > 1 else 0)
+        hbm = state * WORKSET
+        plans.append(MeshPlan(
+            px, py, _layout(px, py, False), round(hbm / 2**20, 3),
+            round(n_exch * lines * _F32 / 2**20, 4), hbm <= H100_BYTES,
+            f"shard {nxl}x{nyl}"))
+    return _rank(plans)
 
 
 def plan_mesh_3d(g: Grid3D, n_devices: int,
                  n_jacobi: int = 10) -> list[MeshPlan]:
     """Ranked (px, py) meshes for the 3-D solver (Decomp3D): x slabs
-    (py=1) and (x,y) pencils, using the engines' own admission function
-    (dist3d.pallas_admission_3d) so a top-ranked plan is guaranteed to
-    actually run the pallas engine."""
-    from .dist3d import _pad_planes, pallas_admission_3d
+    (py=1) and (x,y) pencils; z is never decomposed.
 
+    Exchanges per Jacobi step (parallel/dist3d.py): u*, v*, w*; p once
+    per Jacobi sweep; 5 fields at each of the 3 BC passes; F after each
+    of the 3 FCT sweeps; 2 fields x 2 planes for the widened sweep along
+    each sharded axis."""
     plans = []
     for px, py in _divisor_pairs(n_devices):
         if g.nx % px or g.ny % py:
             continue
         nxl, nyl = g.nx // px, g.ny // py
-        owned = nxl * nyl * g.nz
-        adm = pallas_admission_3d(g, px, py, n_jacobi)
-        pj, pk = _pad_planes(adm["nyE"], g.nz)
-        plane = (adm["nyE"] + 2 + pj) * (g.nz + 2 + pk)
-        halo = 0.0
-        if px > 1:
-            halo += 2 * (adm["W"] + 1) * plane * 5
-        if py > 1:
-            halo += 2 * (adm["Wy"] + 1) * (adm["nloc"] + 2) \
-                * (g.nz + 2 + pk) * 5
-        halo_mb = halo * 4 / 2**20
-        if adm["ok"]:
-            engine = "pallas-pencil" if adm["pencil"] else "pallas-slab"
-            swept = (adm["nloc"] + 2) * plane
-            speed = _B_SPEED.get(adm["B"], 0.8)
-            detail = (f"W={adm['W']} B={adm['B']}"
-                      + (f" Wy={adm['Wy']}" if adm["pencil"] else ""))
-        else:
-            engine, swept, speed = "xla", owned, 0.12
-            detail = adm["why"]
-        wf = swept / owned
-        plans.append(MeshPlan(px, py, engine, round(wf, 3),
-                              round(speed / wf, 4), round(halo_mb, 3),
-                              detail))
-    plans.sort(key=lambda p: -p.score)
-    return plans
+        if (px > 1 and nxl < MIN_LOCAL) or (py > 1 and nyl < MIN_LOCAL):
+            continue
+        n_exch = 3 + n_jacobi + 15 + 3 + 4
+        state = 5 * (nxl + 2) * (nyl + 2) * (g.nz + 2) * _F32
+        planes = (2 * (nyl + 2) if px > 1 else 0) \
+            + (2 * (nxl + 2) if py > 1 else 0)
+        hbm = state * WORKSET
+        plans.append(MeshPlan(
+            px, py, _layout(px, py, True), round(hbm / 2**20, 3),
+            round(n_exch * planes * (g.nz + 2) * _F32 / 2**20, 4),
+            hbm <= H100_BYTES, f"shard {nxl}x{nyl}x{g.nz}"))
+    return _rank(plans)
 
 
 def format_plans(plans: list[MeshPlan]) -> str:
     """Human-readable ranking table (CLI --plan-mesh)."""
     if not plans:
         return "no mesh shape divides this grid at that device count"
-    lines = [f"{'mesh':>8}  {'engine':<14} {'work x':>7} {'score':>7} "
-             f"{'halo MB/step':>12}  detail"]
+    lines = [f"{'mesh':>8}  {'layout':<8} {'HBM MB':>10} "
+             f"{'halo MB/step':>12} {'fits':>5}  detail"]
     for p in plans:
-        lines.append(f"{p.px:>3}x{p.py:<4}  {p.engine:<14} "
-                     f"{p.work_factor:>7} {p.score:>7} "
-                     f"{p.halo_mb_step:>12}  {p.detail}")
+        lines.append(f"{p.px:>3}x{p.py:<4}  {p.layout:<8} {p.hbm_mb:>10} "
+                     f"{p.halo_mb_step:>12} {'yes' if p.fits else 'no':>5}"
+                     f"  {p.detail}")
     return "\n".join(lines)

@@ -25,27 +25,26 @@ import jax.numpy as jnp
 
 from .config import SimConfig
 from .state import State
+from .ops.poisson import solve_pressure_counted
 from .ops import (
     apply_bc,
     clamp01,
     mix_properties,
     predict_velocity,
     rudman_advect,
-    solve_pressure,
     update_velocity,
     young_normals_curvature,
 )
 
-__all__ = ["step", "step_pair", "simulate", "simulate_cfl",
-           "make_step_fn", "effective_backend", "resolve_auto"]
+__all__ = ["step", "step_counted", "step_pair", "simulate", "simulate_cfl",
+           "make_step_fn", "resolve_auto"]
 
 
 def resolve_auto(cfg: SimConfig) -> SimConfig:
     """pressure_solver='auto' -> 'mg' wherever the grid coarsens at all
-    (mg_levels >= 2), 'rbsor' otherwise — mg is the measured-best upgrade
-    (BASELINE.md "Upgraded pressure solvers on the chip": rel-1e-3 in
+    (mg_levels >= 2), 'rbsor' otherwise — mg reaches a relative 1e-3 in
     O(10) V-cycles where rbsor at the default omega burns its iteration
-    cap), but mg_solve raises on non-coarsenable grids (every extent odd
+    cap, but mg_solve raises on non-coarsenable grids (every extent odd
     or < 8, e.g. 81^2), where rbsor is the documented fallback. The
     distributed drivers apply the SAME policy on the global grid
     (parallel/dist.py, dist3d.py — distributed mg rides parallel/mg.py).
@@ -62,8 +61,17 @@ def resolve_auto(cfg: SimConfig) -> SimConfig:
 
 
 def step(cfg: SimConfig, state: State, even_step: bool, lean: bool = False) -> State:
-    """One full time step. ``even_step`` is a Python bool: the sweep order is
-    a compile-time schedule (two specializations exist inside the scanned
+    """`step_counted` without the pressure solve's iteration count."""
+    return step_counted(cfg, state, even_step, lean)[0]
+
+
+def step_counted(cfg: SimConfig, state: State, even_step: bool,
+                 lean: bool = False):
+    """One full time step; returns (state, iterations its pressure solve
+    took — ops.poisson.solve_pressure_counted).
+
+    ``even_step`` is a Python bool: the sweep order is a compile-time
+    schedule (two specializations exist inside the scanned
     pair; there is no data-dependent branching).
 
     ``lean=True`` skips the two mid-step BC re-applications. Given an entry
@@ -78,438 +86,39 @@ def step(cfg: SimConfig, state: State, even_step: bool, lean: bool = False) -> S
     the result are identical. tests/test_solver_lean.py pins exact
     equality; `simulate` applies BC once at entry and runs lean steps.
 
-    Backend contract for non-BC-consistent entry states: backends agree
-    exactly whenever the entry state's ghost ring is BC-consistent (what
-    every canonical driver produces). From raw-ghost states, 'xla' with
-    lean=False feeds the raw ghosts to the predictor (the literal
-    reference pipeline), while 'pallas_mono' applies BC at entry and runs
-    the lean step (the canonical simulate() semantics) — deterministic,
-    but a different off-spec trajectory."""
+    Each phase runs under a `jax.named_scope` (mix_normals, predict,
+    pressure, correct, fct_x/fct_y, bc) so a profiler trace of the
+    compiled step can be split by phase."""
     cfg = resolve_auto(cfg)
-    eff = effective_backend(cfg)
-    if cfg.num.backend in ("pallas", "pallas_mono", "pallas_tiled",
-                           "pallas_strips") and eff == "xla":
-        # whole-field VMEM residency is the kernels' design envelope, and
-        # the fused kernels implement the reference's fixed-iteration
-        # Jacobi only (a residual-driven while_loop cannot live inside
-        # the VMEM kernel); both cases use the XLA path — warn once so a
-        # user who asked for the fused kernels knows what actually ran
-        _warn_vmem_fallback(cfg)
-    elif eff == "pallas":
-        return _step_pallas(cfg, state, even_step, lean=lean)
-    elif eff == "pallas_hybrid_tiled":
-        return _step_pallas_hybrid_tiled(cfg, state, even_step, lean=lean)
-    elif eff == "pallas_tiled":
-        if not lean:
-            # same entry-BC contract as the mono path below
-            F, u, v, p = state
-            u, v, F, p = apply_bc(u, v, F, p)
-            state = State(F=F, u=u, v=v, p=p)
-        return _step_pallas_tiled(cfg, state, even_step)
-    elif eff == "pallas_strips":
-        if not lean:
-            # same entry-BC contract as the mono path below
-            F, u, v, p = state
-            u, v, F, p = apply_bc(u, v, F, p)
-            state = State(F=F, u=u, v=v, p=p)
-        return _step_pallas_strips(cfg, state, even_step)
-    elif eff == "pallas_mono":
-        if not lean:
-            # the mono kernel implements the LEAN step; make the non-lean
-            # call deterministic across backends by applying BC at entry —
-            # on a BC-consistent state (the only states the canonical
-            # drivers produce; BC is idempotent) this is exactly the full
-            # step, and from raw-ghost states the result is the canonical
-            # entry-BC + lean semantics of simulate() rather than a silent
-            # lean-only trajectory (ADVICE r2). The xla path's non-lean
-            # step from raw ghosts feeds the raw ghosts to the predictor;
-            # that off-spec trajectory is not reproduced here (see the
-            # docstring contract above).
-            F, u, v, p = state
-            u, v, F, p = apply_bc(u, v, F, p)
-            state = State(F=F, u=u, v=v, p=p)
-        return _step_pallas_mono(cfg, state, even_step)
     g, fl, nm = cfg.grid, cfg.fluid, cfg.num
     F, u, v, p = state
 
-    rho, nu = mix_properties(fl, F)
-    _, _, kappa = young_normals_curvature(g, F)
+    with jax.named_scope("mix_normals"):
+        rho, nu = mix_properties(fl, F)
+        _, _, kappa = young_normals_curvature(g, F)
 
-    u_star, v_star = predict_velocity(g, fl, nm, u, v, F, rho, nu, kappa)
+    with jax.named_scope("predict"):
+        u_star, v_star = predict_velocity(g, fl, nm, u, v, F, rho, nu, kappa)
     if not lean:
         # The reference re-applies wall BCs here (2dvof.py:518)
-        u, v, F, p, rho = apply_bc(u, v, F, p, rho)
+        with jax.named_scope("bc"):
+            u, v, F, p, rho = apply_bc(u, v, F, p, rho)
 
-    p = solve_pressure(g, nm, p, u_star, v_star, rho)
+    with jax.named_scope("pressure"):
+        p, iters = solve_pressure_counted(g, nm, p, u_star, v_star, rho)
 
-    u, v = update_velocity(g, nm, u, v, u_star, v_star, p, rho)
+    with jax.named_scope("correct"):
+        u, v = update_velocity(g, nm, u, v, u_star, v_star, p, rho)
     if not lean:
-        u, v, F, p, rho = apply_bc(u, v, F, p, rho)
+        with jax.named_scope("bc"):
+            u, v, F, p, rho = apply_bc(u, v, F, p, rho)
 
     F = rudman_advect(g, nm, F, u, v, even_step)
     F = clamp01(F)  # post_process_f (2dvof.py:452-455)
-    u, v, F, p, _ = apply_bc(u, v, F, p, rho)
+    with jax.named_scope("bc"):
+        u, v, F, p, _ = apply_bc(u, v, F, p, rho)
 
-    return State(F=F, u=u, v=v, p=p)
-
-
-_warned_fallback: set = set()
-
-
-def _warn_vmem_fallback(cfg: SimConfig) -> None:
-    """One warning per (grid, backend): requesting the fused kernels above
-    their VMEM envelope is a silent 2x slowdown otherwise (VERDICT r1 #6)."""
-    import warnings
-
-    g = cfg.grid
-    key = (g.nx, g.ny, cfg.num.backend, cfg.num.pressure_solver)
-    if key in _warned_fallback:
-        return
-    _warned_fallback.add(key)
-    if cfg.num.pressure_solver != "jacobi":
-        why = (f"the hybrid Pallas-phase step (pressure_solver="
-               f"{cfg.num.pressure_solver!r} hosted as XLA between the "
-               "phase kernels) found no tile layout dividing the grid "
-               "whose PHASE_HALO-extended block fits VMEM")
-    else:
-        why = ("the fused kernels' whole-field working set exceeds the "
-               "v5e VMEM envelope (~24 padded fields <= 124 MB, i.e. "
-               "grids up to ~1024^2 f32) and no strip/tile layout "
-               "divides the grid for the tiled engine")
-    warnings.warn(
-        f"backend={cfg.num.backend!r} requested at {g.nx}x{g.ny}, but "
-        + why + "; falling back to the XLA path.",
-        stacklevel=3,
-    )
-
-
-def effective_backend(cfg: SimConfig) -> str:
-    """The backend `step` will actually use for this config.
-
-    'pallas_mono' above the whole-field VMEM envelope auto-upgrades to
-    the strip-streaming engine (`_step_pallas_strips`, preferred: one
-    launch per step with DMA/compute overlap), then the tiled engine
-    (`_step_pallas_tiled`), and only then to the XLA path. Explicit
-    'pallas_strips'/'pallas_tiled' requests use that engine at any size
-    it supports.
-
-    An upgraded pressure solver ('rbsor'/'mg') routes to the HYBRID
-    3-phase engine: Pallas predict + FCT kernels with the residual-driven
-    XLA solve hosted between them (`_step_pallas`) — the whole-step
-    kernels implement the fixed-iteration Jacobi only, so only the
-    projection phase downgrades to XLA, not the entire step (VERDICT r3
-    #3). Above the phase kernels' whole-field VMEM envelope each phase
-    streams tile-by-tile through its windowed kernel at PHASE_HALO
-    (`_step_pallas_hybrid_tiled`, VERDICT r4 #3); only grids no tile
-    layout divides fall back to the XLA path."""
-    if cfg.num.backend not in ("pallas", "pallas_mono", "pallas_tiled",
-                               "pallas_strips"):
-        return cfg.num.backend
-    if cfg.num.pressure_solver != "jacobi":
-        if _fits_vmem(cfg):
-            return "pallas"
-        return ("pallas_hybrid_tiled" if _hybrid_tile(cfg) is not None
-                else "xla")
-    if cfg.num.backend == "pallas_tiled":
-        return "pallas_tiled" if _tile_2d(cfg) is not None else "xla"
-    if cfg.num.backend == "pallas_strips":
-        return "pallas_strips" if _strips_layout(cfg) is not None else "xla"
-    if _fits_vmem(cfg):
-        return cfg.num.backend
-    if cfg.num.backend == "pallas_mono":
-        if _strips_layout(cfg) is not None:
-            return "pallas_strips"
-        if _tile_2d(cfg) is not None:
-            return "pallas_tiled"
-    return "xla"
-
-
-def _tile_2d(cfg: SimConfig) -> tuple[int, int] | None:
-    from .pallas_kernels.step_kernels import pick_tile_2d, step_halo_width
-
-    return pick_tile_2d(cfg.grid.nx, cfg.grid.ny, step_halo_width(cfg))
-
-
-def _hybrid_tile(cfg: SimConfig) -> tuple[int, int] | None:
-    """Tile layout for the beyond-VMEM hybrid phases: the halo is the
-    PHASE cone (3), not the whole step's n_jacobi-sized one, and the
-    budget is the predict phase's 28-field footprint."""
-    from .pallas_kernels.step_kernels import PHASE_HALO, pick_tile_2d
-
-    return pick_tile_2d(cfg.grid.nx, cfg.grid.ny, PHASE_HALO, fields=28)
-
-
-def _strips_layout(cfg: SimConfig):
-    from .pallas_kernels.step_kernels import strips_layout_2d
-
-    return strips_layout_2d(cfg)
-
-
-def _fits_vmem(cfg: SimConfig) -> bool:
-    """Whether the fused kernels' whole-field working set fits VMEM (the
-    measured envelope lives in pallas_kernels.step_kernels.fits_vmem_2d;
-    grids up to 1024^2 qualify, larger fall back to the XLA path)."""
-    from .pallas_kernels.step_kernels import fits_vmem_2d
-
-    return fits_vmem_2d(cfg.grid.nx, cfg.grid.ny)
-
-
-def _step_pallas(cfg: SimConfig, state: State, even_step: bool,
-                 interpret: bool | None = None, lean: bool = False) -> State:
-    """Same pipeline with the three fused Pallas phase kernels. The BC
-    applications between phases stay as (cheap, XLA-fused) array updates;
-    rho's ghost mirror is a no-op because rho is re-derived from the
-    BC-mirrored F inside each kernel."""
-    from .pallas_kernels import (
-        pallas_available,
-        pallas_fct_sweep_x,
-        pallas_fct_sweep_y,
-        pallas_predict,
-        project_pressure_and_correct,
-    )
-
-    if interpret is None:
-        interpret = not pallas_available()
-    g, nm = cfg.grid, cfg.num
-    F, u, v, p = state
-
-    u_star, v_star = pallas_predict(cfg, u, v, F, interpret=interpret)
-    if not lean:
-        u, v, F, p = apply_bc(u, v, F, p)
-
-    if nm.pressure_solver == "jacobi":
-        p, u, v = project_pressure_and_correct(
-            cfg, F, u_star, v_star, p, u, v, interpret=interpret
-        )
-    else:
-        # HYBRID projection (VERDICT r3 #3): the residual-driven solvers
-        # are while_loops that cannot live inside the VMEM-resident
-        # kernel, so the solve runs as XLA between the Pallas predict and
-        # FCT phases; rhs/correction match the fused kernel's expressions
-        # (ops/poisson.divergence_rhs, ops/momentum.update_velocity).
-        rho, _ = mix_properties(cfg.fluid, F)
-        p = solve_pressure(g, nm, p, u_star, v_star, rho)
-        u, v = update_velocity(g, nm, u, v, u_star, v_star, p, rho)
-    if not lean:
-        u, v, F, p = apply_bc(u, v, F, p)
-
-    if even_step:
-        F = pallas_fct_sweep_y(cfg, F, v, interpret=interpret)
-        F = pallas_fct_sweep_x(cfg, F, u, interpret=interpret)
-    else:
-        F = pallas_fct_sweep_x(cfg, F, u, interpret=interpret)
-        F = pallas_fct_sweep_y(cfg, F, v, interpret=interpret)
-    F = clamp01(F)
-    u, v, F, p = apply_bc(u, v, F, p)
-    return State(F=F, u=u, v=v, p=p)
-
-
-def _step_pallas_hybrid_tiled(cfg: SimConfig, state: State, even_step: bool,
-                              tile: int | tuple[int, int] | None = None,
-                              interpret: bool | None = None,
-                              lean: bool = False) -> State:
-    """The HYBRID step beyond the phase kernels' whole-field VMEM
-    envelope (VERDICT r4 #3): each Pallas phase — predict and the single
-    FCT sweeps — streamed tile-by-tile through its windowed kernel
-    (pallas_predict_win / pallas_fct_sweep_win) at the phase's own halo
-    (PHASE_HALO = 3, not the whole step's n_jacobi-sized cone), with the
-    residual-driven solve + correction hosted as XLA between the phases
-    exactly like `_step_pallas` inside the envelope. Same validity-cone
-    slicing as `_step_pallas_tiled`: each tile ships a W-extended block
-    from the CURRENT field, keeps the (T+2)-wide ghost-included center
-    (adjacent tiles overlap by two identical fully-valid rows), and all
-    tiles run under one `lax.fori_loop` per phase — one compiled kernel
-    per phase serves every tile (oi/oj are SMEM scalars)."""
-    from .pallas_kernels import pallas_available
-    from .pallas_kernels.step_kernels import (
-        PHASE_HALO,
-        pallas_fct_sweep_win,
-        pallas_predict_win,
-    )
-
-    if interpret is None:
-        interpret = not pallas_available()
-    g, nm = cfg.grid, cfg.num
-    W = PHASE_HALO
-    T = tile if tile is not None else _hybrid_tile(cfg)
-    if isinstance(T, int):
-        T = (T, T)
-    if T is None or g.nx % T[0] or g.ny % T[1]:
-        raise ValueError(
-            f"no valid hybrid-phase tile for {g.nx}x{g.ny} (tile={tile}); "
-            f"tiles must divide the grid and fit VMEM with a 2x{W} halo")
-    Tx, Ty = T
-    ntx, nty = g.nx // Tx, g.ny // Ty
-    Ex, Ey = Tx + 2 * W + 2, Ty + 2 * W + 2
-    F, u, v, p = state
-
-    def tiled(fields, call, n_out):
-        padded = [jnp.pad(a, W) for a in fields]
-
-        def body(t, carry):
-            ti = t // nty
-            tj = t - ti * nty
-            r0 = ti * Tx
-            c0 = tj * Ty
-            blocks = [jax.lax.dynamic_slice(a, (r0, c0), (Ex, Ey))
-                      for a in padded]
-            out = call(blocks, r0 - W, c0 - W)
-            kept = [o[W:W + Tx + 2, W:W + Ty + 2] for o in out]
-            return tuple(
-                jax.lax.dynamic_update_slice(acc, k, (r0, c0))
-                for acc, k in zip(carry, kept))
-
-        init = tuple(jnp.zeros_like(fields[0]) for _ in range(n_out))
-        return jax.lax.fori_loop(0, ntx * nty, body, init)
-
-    u_star, v_star = tiled(
-        (u, v, F),
-        lambda b, oi, oj: pallas_predict_win(cfg, *b, oi, oj,
-                                             interpret=interpret),
-        2)
-    if not lean:
-        u, v, F, p = apply_bc(u, v, F, p)
-
-    rho, _ = mix_properties(cfg.fluid, F)
-    p = solve_pressure(g, nm, p, u_star, v_star, rho)
-    u, v = update_velocity(g, nm, u, v, u_star, v_star, p, rho)
-    if not lean:
-        u, v, F, p = apply_bc(u, v, F, p)
-
-    def sweep(F, vel, axis):
-        (out,) = tiled(
-            (F, vel),
-            lambda b, oi, oj: (pallas_fct_sweep_win(
-                cfg, b[0], b[1], axis, oi, oj, interpret=interpret),),
-            1)
-        return out
-
-    if even_step:
-        F = sweep(F, v, 1)
-        F = sweep(F, u, 0)
-    else:
-        F = sweep(F, u, 0)
-        F = sweep(F, v, 1)
-    F = clamp01(F)
-    u, v, F, p = apply_bc(u, v, F, p)
-    return State(F=F, u=u, v=v, p=p)
-
-
-def _step_pallas_mono(cfg: SimConfig, state: State, even_step: bool,
-                      interpret: bool | None = None) -> State:
-    """The whole (lean) step as one VMEM-resident Pallas kernel."""
-    from .pallas_kernels import pallas_available, pallas_fullstep
-
-    if interpret is None:
-        interpret = not pallas_available()
-    F, u, v, p = pallas_fullstep(
-        cfg, state.F, state.u, state.v, state.p, even_step, interpret=interpret
-    )
-    return State(F=F, u=u, v=v, p=p)
-
-
-def _step_pallas_tiled(cfg: SimConfig, state: State, even_step: bool,
-                       tile: int | tuple[int, int] | None = None,
-                       interpret: bool | None = None) -> State:
-    """The whole (lean) step streamed tile-by-tile through the windowed
-    whole-step kernel — mono-class throughput beyond the whole-field VMEM
-    envelope (>1024² f32 on the v5e).
-
-    Each Tx×Ty tile ships a W-halo-extended block sliced from the CURRENT
-    full state (W = step_halo_width, the step's exact L∞ dependency
-    radius), runs `pallas_fullstep_win` with its global origin, and keeps
-    the (T+2)-wide center, whose every cell is at distance ≥ W from the
-    extended edge and therefore exactly the serial value (the same cone
-    argument the distributed engine's 1×1 bit-exactness rests on,
-    parallel/dist.py). Unlike a distributed shard there is no T ≥ W
-    restriction: the halo is sliced, not exchanged. Blocks beyond the
-    walls are zero-padded; the kernel's global-index masks keep them
-    inert exactly as for edge shards. Tiles run under one `lax.fori_loop`
-    inside the step program — a single compiled kernel serves all tiles
-    (oi/oj are SMEM scalars). The auto-picked layout is full-width strips
-    (Ty = ny) whenever they fit VMEM: contiguous row windows make the
-    feeding `dynamic_slice` a linear memcpy and waste the least lane
-    padding (pick_tile_2d)."""
-    from .pallas_kernels import pallas_available
-    from .pallas_kernels.step_kernels import (
-        pallas_fullstep_win,
-        pick_tile_2d,
-        step_halo_width,
-    )
-
-    if interpret is None:
-        interpret = not pallas_available()
-    g = cfg.grid
-    W = step_halo_width(cfg)
-    T = tile if tile is not None else pick_tile_2d(g.nx, g.ny, W)
-    if isinstance(T, int):
-        T = (T, T)
-    if T is None or g.nx % T[0] or g.ny % T[1]:
-        raise ValueError(
-            f"no valid tile for {g.nx}x{g.ny} (tile={tile}); tiles must "
-            f"divide the grid and fit the VMEM envelope with a 2x{W} halo")
-    Tx, Ty = T
-    ntx, nty = g.nx // Tx, g.ny // Ty
-    Ex, Ey = Tx + 2 * W + 2, Ty + 2 * W + 2
-    F, u, v, p = state
-    padded = tuple(jnp.pad(a, W) for a in (F, u, v, p))
-
-    def tile_body(t, carry):
-        ti = t // nty
-        tj = t - ti * nty
-        r0 = ti * Tx
-        c0 = tj * Ty
-        blocks = [jax.lax.dynamic_slice(a, (r0, c0), (Ex, Ey))
-                  for a in padded]
-        out = pallas_fullstep_win(
-            cfg, *blocks, r0 - W, c0 - W, even_step,
-            interpret=interpret)
-        # valid center: ghost-included global rows [ti*Tx, ti*Tx+Tx+2) —
-        # adjacent tiles overlap by two rows of identical fully-valid
-        # values, so write order is immaterial
-        kept = [o[W:W + Tx + 2, W:W + Ty + 2] for o in out]
-        return tuple(
-            jax.lax.dynamic_update_slice(acc, k, (r0, c0))
-            for acc, k in zip(carry, kept))
-
-    Fo, uo, vo, po = jax.lax.fori_loop(0, ntx * nty, tile_body,
-                                       (F, u, v, p))
-    return State(F=Fo, u=uo, v=vo, p=po)
-
-
-def _step_pallas_strips(cfg: SimConfig, state: State, even_step: bool,
-                        interpret: bool | None = None,
-                        tx: int | None = None) -> State:
-    """The whole (lean) step as ONE strip-streaming Pallas launch
-    (pallas_fullstep_strips): the fields live padded in HBM, full-width
-    row strips are double-buffer DMA'd through VMEM with each window's
-    copy-in overlapped behind the previous strip's compute. Same validity
-    -cone numerics as the tiled engine, without its per-tile XLA
-    dynamic_slice/dynamic_update_slice round trips or per-tile kernel
-    launches. This entry point pads/unpads per call (tests, single
-    steps); `simulate` keeps the padded layout resident across the whole
-    scan (_simulate_strips)."""
-    from .pallas_kernels import pallas_available
-    from .pallas_kernels.step_kernels import (
-        pad_to_strips,
-        pallas_fullstep_strips,
-        strips_layout_2d,
-    )
-
-    if interpret is None:
-        interpret = not pallas_available()
-    lay = strips_layout_2d(cfg, tx=tx)
-    if lay is None:
-        raise ValueError("no strip layout fits VMEM for this grid")
-    W2 = lay[1]
-    F, u, v, p = state
-    n0, n1 = F.shape
-    out = pallas_fullstep_strips(
-        cfg, *(pad_to_strips(lay, a) for a in (F, u, v, p)), even_step,
-        interpret=interpret, tx=tx)
-    sl = (slice(W2, W2 + n0), slice(W2, W2 + n1))
-    Fo, uo, vo, po = (a[sl] for a in out)
-    return State(F=Fo, u=uo, v=vo, p=po)
+    return State(F=F, u=u, v=v, p=p), iters
 
 
 def step_pair(cfg: SimConfig, state: State, lean: bool = False) -> State:
@@ -547,8 +156,6 @@ def _simulate_impl(cfg: SimConfig, state: State, n_steps: int,
     state = State(F=F, u=u, v=v, p=p)
     even1 = (istep0 + 1) % 2 == 0  # parity of the first step taken here
     n_pairs, rem = divmod(n_steps, 2)
-    if effective_backend(cfg) == "pallas_strips":
-        return _simulate_strips(cfg, state, n_pairs, rem, even1)
 
     def body(s, _):
         s = step(cfg, s, even_step=even1, lean=True)
@@ -578,8 +185,8 @@ def simulate_cfl(cfg: SimConfig, state: State, n_steps: int,
     ``first_step`` is the 1-based global step of the first such event
     (None when there were none). The reference prints each violation
     from INSIDE the momentum kernel mid-run; a host print per step would
-    serialize the TPU scan, so the TPU-native form carries the running
-    argmax + event counters through the scan (~µs against the step) and
+    serialize the device scan, so the scan carries the running
+    argmax + event counters instead (~µs against the step) and
     the CLI prints the warning — naming count, first step, and peak cell
     — at the next host sync (the frame boundary). The tracking only
     READS each step's output, but the extra consumers change XLA's
@@ -656,43 +263,6 @@ def _simulate_cfl_impl(cfg: SimConfig, state: State, n_steps: int,
         state = step(cfg, state, even_step=even1, lean=True)
         rec = track(rec, state, jnp.asarray(n_steps - 1, jnp.int32))
     return (state,) + rec
-
-
-def _simulate_strips(cfg: SimConfig, state: State, n_pairs: int, rem: int,
-                     even1: bool) -> State:
-    """Strip-engine scan body: pad ONCE to the engine's resident (P0, P1)
-    layout, scan whole-step kernel launches on the padded arrays (the
-    unwritten junk margin each step feeds the next step's cone margin —
-    the documented erosion contract), and slice the state back out at the
-    end. Saves the per-step pad/unpad HBM round trip of the step() entry
-    point (8 full-field copies, ~10% of a 2048² step)."""
-    from .pallas_kernels import pallas_available
-    from .pallas_kernels.step_kernels import (
-        pad_to_strips,
-        pallas_fullstep_strips,
-        strips_layout_2d,
-    )
-
-    interpret = not pallas_available()
-    lay = strips_layout_2d(cfg)
-    W2 = lay[1]
-    n0, n1 = state.F.shape
-    padded = tuple(pad_to_strips(lay, a) for a in state)
-
-    def body(arrs, _):
-        arrs = pallas_fullstep_strips(cfg, *arrs, even1,
-                                      interpret=interpret)
-        arrs = pallas_fullstep_strips(cfg, *arrs, not even1,
-                                      interpret=interpret)
-        return arrs, None
-
-    padded, _ = jax.lax.scan(body, padded, None, length=n_pairs)
-    if rem:
-        padded = pallas_fullstep_strips(cfg, *padded, even1,
-                                        interpret=interpret)
-    sl = (slice(W2, W2 + n0), slice(W2, W2 + n1))
-    Fo, uo, vo, po = (a[sl] for a in padded)
-    return State(F=Fo, u=uo, v=vo, p=po)
 
 
 def make_step_fn(cfg: SimConfig):

@@ -1,7 +1,7 @@
 """Simulation state pytree and initial conditions.
 
 The reference holds ~30 mutable module-level Taichi fields (2dvof.py:52-93).
-In the TPU-native design, the *carried* state is only what the time step
+In the JAX-native design, the *carried* state is only what the time step
 actually propagates — F, u, v, p — as an immutable pytree; everything else
 (rho, nu, normals, curvature, FCT scratch) is recomputed inside the fused,
 jitted step and never materialized in HBM across steps.

@@ -1,3 +1,3 @@
-from .profiling import trace, time_steps
+from .profiling import trace
 
-__all__ = ["trace", "time_steps"]
+__all__ = ["trace"]

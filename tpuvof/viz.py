@@ -5,12 +5,14 @@ buffer that the host then pushes through matplotlib colormaps
 (cm.Blues / cm.coolwarm / cm.plasma, 2dvof.py:536-554) and the arrow overlay
 (flow_visualization.py). Here the whole frame — nearest-neighbor upsample +
 colormap lookup — is computed on device as one jitted function returning an
-RGB image; matplotlib is only consulted once at import to bake the 256-entry
-LUTs as constants.
+RGB image. The three 256-entry tables are matplotlib's, baked into
+colormaps.npz by scripts/make_colormaps.py, so rendering needs no
+matplotlib.
 """
 from __future__ import annotations
 
-from functools import partial
+import os
+from functools import cache, partial
 
 import jax
 import jax.numpy as jnp
@@ -30,15 +32,15 @@ __all__ = [
 MODES = ("vof", "u", "v", "vnorm", "vectors")
 
 
-def _lut(name: str) -> np.ndarray:
-    """256-entry RGB lookup table for a matplotlib colormap."""
-    import matplotlib.cm as cm
 
-    return np.asarray(getattr(cm, name)(np.linspace(0.0, 1.0, 256)))[:, :3].astype(
-        np.float32
-    )
 
-_LUTS = {"Blues": _lut("Blues"), "coolwarm": _lut("coolwarm"), "plasma": _lut("plasma")}
+@cache
+def _luts() -> dict[str, np.ndarray]:
+    """The baked (256, 3) float32 RGB tables, keyed by colormap name."""
+    with np.load(os.path.join(os.path.dirname(__file__),
+                              "colormaps.npz")) as z:
+        return {name: z[name] for name in z.files}
+
 _MODE_CMAP = {"vof": "Blues", "u": "coolwarm", "v": "coolwarm", "vnorm": "plasma",
               "vectors": "Blues"}
 
@@ -80,7 +82,7 @@ def _apply_lut(buf, lut):
 def render_frame(cfg: SimConfig, state: State, mode: str):
     """(2nx, 2ny, 3) float32 RGB frame for a view mode, fully on device."""
     buf = scalar_view(cfg, state, mode)
-    lut = jnp.asarray(_LUTS[_MODE_CMAP[mode]])
+    lut = jnp.asarray(_luts()[_MODE_CMAP[mode]])
     return _apply_lut(buf, lut)
 
 
